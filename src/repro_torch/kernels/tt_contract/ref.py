@@ -1,0 +1,63 @@
+"""Plain PyTorch versions of the TT-chain contraction (the kernels' oracle).
+
+Same lead-absorbed chain representation as the JAX package's
+``kernels/tt_contract/ref.py``: ``cores[0]`` is 2-D ``(n_1, r_1)``, every
+later core is 3-D ``(r_{k-1}, n_k, r_k)`` with ``r_N == 1``; the first
+``split`` cores are input cores.  The contraction order matches
+``tt_reconstruct`` (left to right, one mode at a time).
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import torch
+
+
+def tt_contract_ref(x2: torch.Tensor, cores: Sequence[torch.Tensor],
+                    split: int) -> torch.Tensor:
+    """y = x · W where W is the TT chain; (B, N_in) → (B, N_out) float32."""
+    if not 1 <= split <= len(cores):
+        raise ValueError(f"split {split} outside 1..{len(cores)}")
+    b = x2.shape[0]
+    g0 = cores[0]
+    if g0.ndim != 2:
+        raise ValueError("cores[0] must be lead-absorbed (n1, r1)")
+    t = x2.float().reshape(b, g0.shape[0], -1)
+    t = torch.einsum("bnm,ns->bms", t, g0.float())
+    for g in cores[1:split]:
+        r = g.shape[0]
+        t = t.reshape(b, g.shape[1], -1, r)
+        t = torch.einsum("bnmr,rns->bms", t, g.float())
+    t = t.reshape(b, 1, -1)
+    for g in cores[split:]:
+        t = torch.einsum("bmr,rns->bmns", t, g.float())
+        t = t.reshape(b, -1, g.shape[2])
+    return t.reshape(b, -1)
+
+
+def tt_dequant_chain(cores: Sequence[torch.Tensor],
+                     scales: Sequence[Optional[torch.Tensor]]):
+    """Each core widened to f32 and multiplied by its scale (``None`` = the
+    core is already wide).  The unfused oracle of the int8 kernels."""
+    if len(cores) != len(scales):
+        raise ValueError(f"{len(cores)} cores but {len(scales)} scales")
+    out = []
+    for g, s in zip(cores, scales):
+        g = g.float()
+        if s is not None:
+            g = g * torch.as_tensor(s, dtype=torch.float32, device=g.device)
+        out.append(g)
+    return out
+
+
+def tt_dense_ref(cores: Sequence[torch.Tensor], split: int) -> torch.Tensor:
+    """Materialize the chain into the dense (N_in, N_out) matrix."""
+    acc = cores[0].float()
+    n_in = cores[0].shape[0]
+    for k, g in enumerate(cores[1:], start=1):
+        r = g.shape[0]
+        acc = acc.reshape(-1, r) @ g.float().reshape(r, -1)
+        if k < split:
+            n_in *= g.shape[1]
+    return acc.reshape(n_in, -1)
