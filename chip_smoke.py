@@ -21,15 +21,40 @@
    and python drivers give the same tokens (tt).  The reference's own bf16
    verify numbers are printed, not gated: on full-width synthetic weights
    the JAX reference misses them itself, seed to seed (PERF.md).
-3. Kernel phase: each of the four kernels against its plain PyTorch
+   The main path compresses on the default batched plan; at full width
+   every bucket runs serial, through the sort and truncation kernels
+   (gated: both launched, no plain engine call on the card).
+3. Kernel phase: each of the four chain kernels against its plain PyTorch
    version on the same card tensors, at every chain shape the main path
    gave it and at B in {1, 4, 64}, with float32, bfloat16 and int8 tail
    cores (``kernels/tt_contract/cases.py``); pass when max|Δ| <= 2e-4 *
    max|ref|.  Times (CUDA events, median) of the kernel, its plain
    version and one ``torch.einsum`` call over the same chain, with the
    tail cores in the dtype the main path serves (bfloat16, int8).
-4. Prints one ``{"kernels": [...]}`` JSON line, the card line again, and
-   as the last line ``{"ok": true, "device": {...}}``.
+4. TTD-engine phase (the paper's engine: panel factor, WY update, sort,
+   truncation; ``kernels/{householder,block_update,singular_sort,
+   frob_truncate}``):
+   a. full-width qwen1.5-0.5b, the main path's weights, compressed with
+      the TT-Edge policy (``hbd_impl="blocked"``) on the batched plan:
+      plan, seconds, ranks beside the main path's (each within one), every
+      TT leaf within ε, TT-native vs reconstruct-then-serve in float32 at
+      1e-4 of scale, and the single-panel, WY, sort and truncation kernels
+      launched with no plain call; then where the time goes, for both HBD
+      impls (host timers around each phase, synchronized);
+   b. ResNet-32 (``configs/resnet32.py``, seed 0, α 1.0, eps 0.2), blocked,
+      batched plan: 4 bucket passes and no serial member, every TT leaf
+      within ε, ranks and payload equal to a ``plan="serial"`` run, and
+      the batched kernels launched;
+   c. each engine kernel against its plain version at the shapes those
+      two runs gave it (printed), ragged shapes and panels on either side
+      of the shared-memory limit (``kernels/engine_cases.py``): 2e-4 *
+      max|ref|, sorted σ, index vectors and ranks exactly equal; the
+      blocked SVD of wq's 24,576 x 1,024 unfolding against
+      ``torch.linalg.svd`` in float64 (max|Δσ| <= 1e-4 σ_max); times of kernel,
+      plain version and library call (geqrf, matmul, baddbmm, sort).
+5. Prints one ``{"kernels": [...]}`` JSON line (all twelve ported kernels),
+   the card line again, and as the last line ``{"ok": true, "device":
+   {...}}``.
 
 Exits non-zero without a CUDA card, and on any failed phase.
 """
@@ -38,6 +63,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -197,16 +223,49 @@ def f32_oracle(serve_mod, out) -> float:
     return d / scale
 
 
+def kernel_modules():
+    """The ops modules of every ported kernel (chain and engine)."""
+    from repro_torch.kernels.block_update import ops as wy
+    from repro_torch.kernels.frob_truncate import ops as ft
+    from repro_torch.kernels.householder import ops as hh
+    from repro_torch.kernels.singular_sort import ops as ss
+    from repro_torch.kernels.tt_contract import ops as tc
+    return (tc, hh, wy, ss, ft)
+
+
+def reset_counts() -> None:
+    for m in kernel_modules():
+        m.reset_launches()
+
+
+def read_counts() -> dict:
+    """Every module's launch counts; plain calls on the card are keyed
+    ``plain_on_cuda:<kernel dir>``."""
+    out = {}
+    for m in kernel_modules():
+        for k, v in m.launches.items():
+            if k == "plain_on_cuda":
+                k = f"plain_on_cuda:{m.__name__.split('.')[-2]}"
+            out[k] = out.get(k, 0) + v
+    return out
+
+
+def check_no_plain(counts: dict, what: str) -> None:
+    for k, v in counts.items():
+        if k.startswith("plain_on_cuda") and v:
+            check(False, f"{what}: {v} plain calls on the card ({k})")
+
+
 def run_main_path(ops, serve_mod, weights: str) -> dict:
     """``serve()`` once; the launch counters cover exactly this run."""
     args = serve_mod.parse_args(SERVE_ARGS + ["--weights", weights])
-    ops.reset_launches()
+    reset_counts()
     t0 = time.perf_counter()
     out = serve_mod.serve(args)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = dict(ops.launches)
-    ops.reset_launches()
+    counts = read_counts()
+    reset_counts()
     info, ver = out["info"], out["verify"]
     gen = out["generated"]
     check(gen.shape == (4, 16) and gen.min() >= 0 and gen.max() < 151_936,
@@ -217,9 +276,17 @@ def run_main_path(ops, serve_mod, weights: str) -> dict:
           f"{weights}: {counts.get('plain_chains')} chains took the plain path")
     want = (("tt_contract_2", "tt_contract_3") if weights == "tt"
             else ("tt_contract_2q", "tt_contract_3q"))
+    # compression on the batched plan: every full-width bucket is serial,
+    # so each TT-SVD step sorts and truncates on the engine kernels
+    want += ("bitonic_sort_desc", "frob_truncate")
     for k in want:
         check(counts.get(k, 0) > 0,
               f"{weights}: kernel {k} never launched on the main path")
+    check_no_plain(counts, weights)
+    ex = info["exec_stats"]
+    print(f"[chip_smoke] main path {weights}: compression plan "
+          f"{ex.bucket_launches} bucket passes, {ex.serial_params} serial "
+          f"params, fingerprint {info['plan_fingerprint'][:16]}")
     # decode steps that ran TT kernels: fused prefill + decode (16 + 15),
     # plus the int8 verify's teacher-forced pass over the prompt (15)
     steps = 31 + (15 if weights != "tt" else 0)
@@ -234,7 +301,8 @@ def run_main_path(ops, serve_mod, weights: str) -> dict:
           + (f", tie-tolerant agreement {ver['tie_agree']:.4f} (gate 0.99)"
              if "tie_agree" in ver else ""))
     res = {"counts": counts, "steps": steps, "info": info, "verify": ver,
-           "tok_per_s": out["tok_per_s"], "run": out["run"]}
+           "tok_per_s": out["tok_per_s"], "run": out["run"],
+           "prompts": out["prompts"]}
     res["kernels_vs_plain"] = kernels_vs_plain(serve_mod, out, weights)
     if weights == "tt":
         res["f32_oracle"] = f32_oracle(serve_mod, out)
@@ -340,6 +408,352 @@ def kernel_phase(ops, cases, shapes, batch_sizes=(1, 4, 64), report_b=4):
     return rec
 
 
+# ---------------------------------------------------------------------------
+# TTD-engine phase
+# ---------------------------------------------------------------------------
+
+EPS = 0.2
+PANEL = 32          # core/blocked.py's panel width
+
+
+def tt_leaves(payload) -> dict:
+    from repro_torch import tree
+    from repro_torch.core import compression as comp
+    return {path: c for path, c in tree.leaves_with_paths(
+        payload, is_leaf=comp.is_compressed_param) if c.kind == "tt"}
+
+
+def eps_gate(params, payload, what: str) -> float:
+    """Every TT leaf within ε of its dense weight; returns the worst
+    relative error."""
+    from repro_torch import tree
+    from repro_torch.core import compression as comp
+    dense = dict(tree.leaves_with_paths(params))
+    worst = 0.0
+    for path, c in tt_leaves(payload).items():
+        w = torch.as_tensor(dense[path]).to(DEVICE, torch.float32)
+        rec = comp.decompress_param(c).to(DEVICE, torch.float32)
+        rel = float(torch.linalg.vector_norm(w - rec)
+                    / torch.linalg.vector_norm(w))
+        check(rel <= EPS, f"{what}: {path} error {rel:.4f} > eps {EPS}")
+        worst = max(worst, rel)
+    print(f"[chip_smoke] {what}: every TT leaf within eps {EPS} "
+          f"(worst ||W - W_R|| / ||W|| {worst:.4f})")
+    return worst
+
+
+class PhaseTimers:
+    """Host seconds of each compression phase, synchronized at the phase
+    boundaries: the HBD (unblocked loop, or blocked QR + HBD of R), the
+    sort, the truncation, the whole SVD (phase 2 = SVD - HBD - sort), by
+    wrapping the functions the compression path calls for one run."""
+
+    def __init__(self):
+        import importlib
+        blocked, svd, truncation, tt = (
+            importlib.import_module(f"repro_torch.core.{m}")
+            for m in ("blocked", "svd", "truncation", "tt"))
+        self.sec = {"hbd": 0.0, "sort": 0.0, "truncate": 0.0, "svd": 0.0}
+        self.targets = [
+            (svd, "householder_bidiagonalize", "hbd"),
+            (svd, "householder_bidiagonalize_batched", "hbd"),
+            (blocked, "blocked_bidiagonalize", "hbd"),
+            (blocked, "blocked_bidiagonalize_batched", "hbd"),
+            (svd, "sorting_basis", "sort"),
+            (truncation, "truncation_rank", "truncate"),
+            (truncation, "truncate_masked", "truncate"),
+            (tt, "_svd_fn", "svd"), (tt, "_svd_batched", "svd")]
+        self.saved = []
+
+    def _wrap(self, fn, key):
+        def timed(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            self.sec[key] += time.perf_counter() - t0
+            return out
+        return timed
+
+    def __enter__(self):
+        for mod, name, key in self.targets:
+            fn = getattr(mod, name)
+            self.saved.append((mod, name, fn))
+            setattr(mod, name, self._wrap(fn, key))
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+
+    def breakdown(self, total: float) -> dict:
+        s = self.sec
+        return {"total_s": total, "hbd_s": s["hbd"],
+                "diag_s": s["svd"] - s["hbd"] - s["sort"], "sort_s": s["sort"],
+                "truncate_s": s["truncate"],
+                "rest_s": total - s["svd"] - s["truncate"]}
+
+
+def compress_timed(params, policy, plan=None, timers=False):
+    """(payload, report, seconds), optionally with the phase breakdown."""
+    from repro_torch.core import compression as comp
+    torch.cuda.synchronize()
+    if timers:
+        with PhaseTimers() as pt:
+            t0 = time.perf_counter()
+            payload, report = comp.TTCompressor(policy).compress(params, plan)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+        return payload, report, dt, pt.breakdown(dt)
+    t0 = time.perf_counter()
+    payload, report = comp.TTCompressor(policy).compress(params, plan)
+    torch.cuda.synchronize()
+    return payload, report, time.perf_counter() - t0, None
+
+
+def engine_fullwidth(serve_mod, main_tt: dict) -> dict:
+    """Full-width qwen1.5-0.5b with the TT-Edge policy on the batched plan,
+    the main path's weights (same seed, same spectral decay)."""
+    from repro_torch import tree
+    from repro_torch.configs import get_config
+    from repro_torch.core import compression as comp
+    from repro_torch.core import plan as plan_mod
+    from repro_torch.core.tt_linear import spectral_decay_pytree
+    from repro_torch.models.registry import build
+    model = build(get_config(ARCH), device=DEVICE)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = spectral_decay_pytree(model.init(0), alpha=1.0)
+    torch.cuda.synchronize()
+    decay_s = time.perf_counter() - t0
+    policy = comp.CompressionPolicy(eps=EPS, min_size=8192,
+                                    hbd_impl="blocked")
+    plan = plan_mod.build_plan(params, policy)
+    print(f"[chip_smoke] engine, full width, blocked policy:\n"
+          f"{plan.describe()}")
+    reset_counts()
+    payload, report, secs, _ = compress_timed(params, policy)
+    counts = read_counts()
+    reset_counts()
+    ranks = {p: c.tt.ranks for p, c in tt_leaves(payload).items()}
+    main_ranks = main_tt["info"]["ranks"]
+    print(f"[chip_smoke] engine, full width: compressed in {secs:.3f}s "
+          f"(blocked); main path {main_tt['info']['compress_s']:.3f}s "
+          f"(unblocked, incl. the spectral decay, which takes "
+          f"{decay_s:.3f}s); payload ratio {report.ratio:.3f}")
+    check(set(ranks) == set(main_ranks),
+          f"engine: TT leaves {sorted(ranks)} differ from the main path's "
+          f"{sorted(main_ranks)}")
+    for path, r in ranks.items():
+        ru = main_ranks.get(path, ())
+        near = len(r) == len(ru) and all(abs(a - b) <= 1
+                                         for a, b in zip(r, ru))
+        check(near, f"engine: {path} blocked ranks {r} vs unblocked {ru}")
+        print(f"[chip_smoke]   {path}: blocked ranks {r}, unblocked {ru}")
+    eps_worst = eps_gate(params, payload, "engine, full width")
+    oracle = f32_oracle(serve_mod, {"model": model, "payload": payload,
+                                    "prompts": main_tt["prompts"]})
+    for k in ("panel_factor", "wy_vta", "wy_apply", "frob_truncate",
+              "bitonic_sort_desc"):
+        check(counts.get(k, 0) > 0,
+              f"engine, full width: kernel {k} never launched")
+    check_no_plain(counts, "engine, full width")
+    print(f"[chip_smoke] engine, full width: launches {counts}")
+
+    wq = dict(tree.leaves_with_paths(params))["layers.attn.wq"]
+    times = {}
+    for impl in ("unblocked", "blocked"):
+        pol = dataclasses.replace(policy, hbd_impl=impl)
+        _, _, _, br = compress_timed(params, pol, timers=True)
+        times[impl] = br
+        print(f"[chip_smoke] engine, full width, {impl}: where the time "
+              f"goes {json.dumps(br)}")
+    return {"secs": secs, "decay_s": decay_s, "ranks": ranks,
+            "counts": counts, "eps_worst": eps_worst, "f32_oracle": oracle,
+            "plan": plan.describe(), "breakdown": times,
+            "tts": {p: c.tt for p, c in tt_leaves(payload).items()},
+            "wq": wq}
+
+
+def engine_resnet() -> dict:
+    """ResNet-32 with the TT-Edge policy on the batched plan."""
+    from repro_torch.configs.resnet32 import resnet32_params
+    from repro_torch.core import compression as comp
+    from repro_torch.core import plan as plan_mod
+    params = {k: torch.from_numpy(v).to(DEVICE)
+              for k, v in resnet32_params(seed=0, alpha=1.0).items()}
+    policy = comp.CompressionPolicy(eps=EPS, hbd_impl="blocked")
+    plan = plan_mod.build_plan(params, policy)
+    print(f"[chip_smoke] engine, ResNet-32, blocked policy:\n"
+          f"{plan.describe()}")
+    reset_counts()
+    payload, report, secs, _ = compress_timed(params, policy)
+    counts = read_counts()
+    reset_counts()
+    ex = report.exec_stats
+    print(f"[chip_smoke] engine, ResNet-32: compressed in {secs:.3f}s, "
+          f"{ex.bucket_launches} bucket passes, {ex.serial_params} serial "
+          f"params, ratio {report.ratio:.3f}; launches {counts}")
+    check(ex.bucket_launches == 4 and ex.serial_params == 0,
+          f"ResNet-32: {ex.bucket_launches} bucket passes and "
+          f"{ex.serial_params} serial params (want 4 and 0)")
+    eps_gate(params, payload, "engine, ResNet-32")
+    serial, s_report, s_secs, _ = compress_timed(params, policy, "serial")
+    tts, s_tts = tt_leaves(payload), tt_leaves(serial)
+    check(set(tts) == set(s_tts), "ResNet-32: batched and serial TT leaves "
+                                  "differ")
+    for path, c in tts.items():
+        sr = s_tts[path].tt.ranks if path in s_tts else None
+        check(c.tt.ranks == sr and c.payload_params
+              == s_tts[path].payload_params,
+              f"ResNet-32: {path} batched ranks {c.tt.ranks} vs serial {sr}")
+    check(report.payload_params == s_report.payload_params,
+          f"ResNet-32: payload {report.payload_params} vs serial "
+          f"{s_report.payload_params}")
+    ranks = sorted({c.tt.ranks for c in tts.values()})
+    print(f"[chip_smoke] engine, ResNet-32: ranks {ranks} equal the serial "
+          f"plan's ({s_secs:.3f}s); payload {report.payload_params}")
+    for k in ("panel_factor_batched", "wy_vta_batched", "wy_apply_batched",
+              "frob_truncate_batched", "bitonic_sort_desc_batched"):
+        check(counts.get(k, 0) > 0, f"ResNet-32: kernel {k} never launched")
+    check_no_plain(counts, "ResNet-32")
+    return {"secs": secs, "counts": counts, "ranks": ranks,
+            "payload_params": report.payload_params, "ratio": report.ratio,
+            "plan": plan}
+
+
+def tall(m: int, n: int):
+    return (m, n) if m >= n else (n, m)
+
+
+def engine_shapes(full_tts: dict, resnet_plan) -> dict:
+    """{kind: {shape: calls in one compression}} of every engine kernel:
+    the unfoldings each TT-SVD step factored (the serial path at the live
+    ranks, the batched buckets at the padded max ranks), the first panel
+    and the widest WY updates of each blocked QR, and σ's length."""
+    from repro_torch.core.tt import tt_max_ranks
+    shapes = {k: {} for k in ("panel", "wy_vta", "wy_apply", "sort",
+                              "truncate", "panel_batched", "wy_vta_batched",
+                              "wy_apply_batched", "sort_batched",
+                              "truncate_batched")}
+
+    def add(kind, shape, calls=1):
+        shapes[kind][shape] = shapes[kind].get(shape, 0) + calls
+
+    def qr(m, n, lead, sfx):
+        np_ = -(-n // PANEL) * PANEL
+        add("panel" + sfx, (*lead, m, PANEL))
+        for wn in ([np_ - PANEL] if np_ > PANEL else []) + [np_]:
+            add("wy_vta" + sfx, (*lead, m, wn, PANEL))
+            add("wy_apply" + sfx, (*lead, m, wn, PANEL))
+        add("sort" + sfx, (*lead, n))
+        add("truncate" + sfx, (*lead, n))
+
+    for tt in full_tts.values():
+        r, dims = tt.ranks, tt.shape
+        for k in range(len(dims) - 1):
+            qr(*tall(r[k] * dims[k], math.prod(dims[k + 1:])), (), "")
+    for b in resnet_plan.buckets:
+        rmax = tt_max_ranks(b.dims, 1 << 30)
+        for k in range(len(b.dims) - 1):
+            m, n = tall(rmax[k] * b.dims[k], math.prod(b.dims[k + 1:]))
+            qr(m, n, (b.batch,), "_batched")
+    return shapes
+
+
+def engine_kernel_phase(shapes: dict) -> dict:
+    """Every engine kernel against its plain version at the main paths'
+    shapes and the ragged ones; times at the main paths' shapes.  Returns
+    per kind the record at its largest main-path shape."""
+    from repro_torch.kernels import engine_cases as ec
+    from repro_torch.kernels.householder import ops as hh
+    gen = torch.Generator(device=DEVICE).manual_seed(2)
+    limit = hh.smem_rows(PANEL)
+    extra = {k: list(v) for k, v in ec.RAGGED_SHAPES.items()}
+    extra["panel"] += [(limit, PANEL), (limit + 1, PANEL)]
+    print(f"[chip_smoke] engine kernel shapes (calls per compression): "
+          f"{json.dumps({k: {str(s): n for s, n in v.items()} for k, v in shapes.items()})}")
+    rec = {}
+    for kind in ec.KINDS:
+        main = shapes.get(kind, {})
+        for shape in list(main) + extra[kind]:
+            case = ec.engine_case(kind, shape, gen, DEVICE)
+            got, ref = case.kernel(), case.plain()
+            torch.cuda.synchronize()
+            ok, err, parts = ec.compare(case, got, ref, TOL)
+            check(ok, f"{kind} {shape} disagrees with its plain version "
+                      f"{parts}")
+            line = (f"[kernel] {kind} {shape}: {parts} "
+                    f"{'ok' if ok else 'FAIL'}")
+            r = rec.setdefault(kind, {"max_abs_err": 0.0})
+            r["max_abs_err"] = max(r["max_abs_err"], err)
+            if shape not in main:
+                print(line)
+                continue
+            reps = 10
+            ms = time_ms(case.kernel, reps)
+            p_ms = time_ms(case.plain, reps)
+            l_ms = time_ms(case.library, reps) if case.library else None
+            bound = max(case.nbytes / HBM_BYTES_PER_S,
+                        case.ops / F32_FLOPS) * 1e3
+            print(f"{line}; kernel {ms:.4f} ms, plain {p_ms:.4f} ms, library "
+                  f"{'-' if l_ms is None else f'{l_ms:.4f}'} ms, bound "
+                  f"{bound:.5f} ms, calls {main[shape]}")
+            if case.nbytes >= r.get("bytes", -1):
+                r.update(shape=list(shape), ms=ms, plain_ms=p_ms,
+                         library_ms=l_ms, bound_ms=bound, bytes=case.nbytes,
+                         ops=case.ops)
+    return rec
+
+
+def blocked_svd_check(wq: torch.Tensor) -> float:
+    """The composed blocked SVD of wq's (24·1024) x (16·64) unfolding (the
+    second TT-SVD step's shape; the first step is exact at full rank 24, so
+    this reshape has the same singular values) against torch.linalg.svd in
+    float64.  float32 ``torch.linalg.svd`` on the card is printed beside it:
+    it is itself ~1e-4·σ_max off float64 at this shape, too coarse to be the
+    oracle."""
+    from repro_torch.core.svd import svd
+    a = wq.float().reshape(wq.shape[0] * wq.shape[1], -1)
+    ref = torch.linalg.svdvals(a.double())
+    smax = float(ref.max())
+    d = float((svd(a, hbd_impl="blocked").s.double() - ref).abs().max()) / smax
+    d_lib = float((torch.linalg.svdvals(a).double() - ref).abs().max()) / smax
+    check(d <= 1e-4, f"blocked SVD of {tuple(a.shape)}: max|dsigma|/sigma_max "
+                     f"{d:.3e} > 1e-4")
+    print(f"[chip_smoke] blocked SVD of {tuple(a.shape)} vs torch.linalg.svd "
+          f"in float64: max|dsigma|/sigma_max {d:.3e} (torch.linalg.svd in "
+          f"float32: {d_lib:.3e})")
+    return d
+
+
+# (JSON name, engine_cases kinds (timed first), source, TPU kernel, launch
+# counters summed)
+ENGINE_ROWS = [
+    ("panel_factor", ("panel",), "householder/csrc/householder.cu",
+     "householder/kernel.py:99", ("panel_factor",)),
+    ("panel_factor_batched", ("panel_batched",),
+     "householder/csrc/householder.cu", "householder/kernel.py:122",
+     ("panel_factor_batched",)),
+    ("wy_update_pass1", ("wy_vta", "wy_vta_batched"),
+     "block_update/csrc/block_update.cu", "block_update/kernel.py:67",
+     ("wy_vta", "wy_vta_batched")),
+    ("wy_update_pass2", ("wy_apply", "wy_apply_batched"),
+     "block_update/csrc/block_update.cu", "block_update/kernel.py:83",
+     ("wy_apply", "wy_apply_batched")),
+    ("frob_truncate", ("truncate",), "frob_truncate/csrc/frob_truncate.cu",
+     "frob_truncate/kernel.py:37", ("frob_truncate",)),
+    ("frob_truncate_batched", ("truncate_batched",),
+     "frob_truncate/csrc/frob_truncate.cu", "frob_truncate/kernel.py:65",
+     ("frob_truncate_batched",)),
+    ("bitonic_sort_desc", ("sort",), "singular_sort/csrc/singular_sort.cu",
+     "singular_sort/kernel.py:93", ("bitonic_sort_desc",)),
+    ("bitonic_sort_desc_batched", ("sort_batched",),
+     "singular_sort/csrc/singular_sort.cu", "singular_sort/kernel.py:61",
+     ("bitonic_sort_desc_batched",)),
+]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("[chip_smoke] no CUDA device available", file=sys.stderr)
@@ -354,8 +768,9 @@ def main() -> int:
     print(f"[chip_smoke] python {sys.version.split()[0]}, torch "
           f"{torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}")
+    from repro_torch.kernels import build as kbuild
     t0 = time.perf_counter()
-    ops.build()
+    kbuild.load_many([m.SOURCE for m in kernel_modules()])   # in parallel
     print(f"[chip_smoke] kernels built and loaded in "
           f"{time.perf_counter() - t0:.2f}s")
 
@@ -370,6 +785,13 @@ def main() -> int:
             shapes[kind].setdefault(shape, 0)   # checked, not in the sums
     rec = kernel_phase(ops, cases, shapes)
     print(f"[chip_smoke] kernel phase {time.perf_counter() - t0:.1f}s")
+
+    t0 = time.perf_counter()
+    full = engine_fullwidth(serve_mod, paths["tt"])
+    resnet = engine_resnet()
+    erec = engine_kernel_phase(engine_shapes(full["tts"], resnet["plan"]))
+    svd_d = blocked_svd_check(full["wq"])
+    print(f"[chip_smoke] TTD-engine phase {time.perf_counter() - t0:.1f}s")
 
     kernels = []
     for name in ops.KERNELS:
@@ -391,6 +813,30 @@ def main() -> int:
             "library_ms": r["library_ms"],
             "timed": "sum over one layer's calls at B=4, main-path shapes",
         })
+    engine_counts = {**full["counts"], **resnet["counts"]}
+    for name, kinds, src, replaces, keys in ENGINE_ROWS:
+        r = erec[kinds[0]]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/{src}",
+            "replaces": f"src/repro/kernels/{replaces}",
+            "launches": sum(engine_counts.get(k, 0) for k in keys),
+            "max_abs_err": max(erec[k]["max_abs_err"] for k in kinds),
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"],
+            "bound_by": ("bytes" if r["bytes"] / HBM_BYTES_PER_S
+                         >= r["ops"] / F32_FLOPS else "operations"),
+            "library_ms": r["library_ms"],
+            "timed": f"one call at the largest main-path shape {r['shape']}",
+        })
+    print(f"[chip_smoke] engine summary: " + json.dumps({
+        "full_width": {k: full[k] for k in (
+            "secs", "decay_s", "eps_worst", "f32_oracle", "breakdown")},
+        "full_width_ranks": {k: list(v) for k, v in full["ranks"].items()},
+        "full_width_launches": full["counts"],
+        "resnet32": {k: resnet[k] for k in (
+            "secs", "counts", "ranks", "payload_params", "ratio")},
+        "blocked_svd_dsigma": svd_d}))
     summary = {
         w: {"compress_s": p["info"]["compress_s"], "tok_per_s": p["tok_per_s"],
             "ranks": {k: list(v) for k, v in p["info"]["ranks"].items()},

@@ -19,7 +19,10 @@ Two deliberate differences, neither of which changes a value:
   M × M form would take 4 TB.
 
 Scalars stay on the device (no host read per step), so on a GPU the loop
-only enqueues work.
+only enqueues work.  Every step carries a leading batch dimension: one
+loop bidiagonalizes a whole bucket of same-shape unfoldings
+(``householder_bidiagonalize_batched``), and the single-matrix form is
+that loop with one member.
 """
 
 from __future__ import annotations
@@ -30,8 +33,8 @@ import torch
 
 
 class HouseResult(NamedTuple):
-    q: torch.Tensor   # pivot value -sign(x1)·||x||
-    v: torch.Tensor   # Householder vector (unnormalized)
+    q: torch.Tensor   # pivot value -sign(x1)·||x||, one per member
+    v: torch.Tensor   # Householder vector (unnormalized), (..., len)
 
 
 def _sign(x: torch.Tensor) -> torch.Tensor:
@@ -40,36 +43,91 @@ def _sign(x: torch.Tensor) -> torch.Tensor:
 
 
 def house(x: torch.Tensor) -> HouseResult:
-    """Paper HOUSE on the active vector x (its first element is x_1)."""
-    norm = torch.linalg.vector_norm(x)
-    s = _sign(x[0])
+    """Paper HOUSE on the active vector(s) x (..., len), x[..., 0] = x_1."""
+    norm = torch.linalg.vector_norm(x, dim=-1)
+    s = _sign(x[..., 0])
     v = x.clone()
-    v[0] = v[0] + s * norm
+    v[..., 0] = v[..., 0] + s * norm
     return HouseResult(q=-s * norm, v=v)
 
 
 def _inv_beta(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """1/β with β = v_1·q; 0 when the active vector is zero (H = I)."""
-    beta = v[0] * q
+    beta = v[..., 0] * q
     safe = beta.abs() > 0
     return torch.where(safe, 1.0 / torch.where(safe, beta, 1.0), 0.0)
 
 
 def house_mm_update(q, v, sub: torch.Tensor, order: int) -> None:
-    """Paper HOUSE_MM_UPDATE, in place on the active block ``sub``.
+    """Paper HOUSE_MM_UPDATE, in place on the active block(s) ``sub``
+    (..., rows, cols), one reflector per member.
 
     order 0 (left):  sub += (v/β) ⊗ (vᵀ·sub)
     order 1 (right): sub += (sub·v) ⊗ (v/β)
     """
     if sub.numel() == 0:
         return
-    ib = _inv_beta(q, v)
+    ib = _inv_beta(q, v)[..., None]
     if order == 0:
-        sub.addr_(v * ib, v @ sub)
+        sub.baddbmm_((v * ib)[..., :, None], v[..., None, :] @ sub)
     elif order == 1:
-        sub.addr_(sub @ v, v * ib)
+        sub.baddbmm_(sub @ v[..., :, None], (v * ib)[..., None, :])
     else:
         raise ValueError(f"order must be 0 (left) or 1 (right), got {order}")
+
+
+def householder_bidiagonalize_batched(
+        a: torch.Tensor, compute_uv: bool = True
+) -> Tuple[Optional[torch.Tensor], torch.Tensor, Optional[torch.Tensor]]:
+    """Paper Algorithm 2 over a (B, M, N) stack (M >= N), one reduction loop
+    for every member: member k equals ``householder_bidiagonalize(a[k])``.
+
+    Returns the thin U_B (B, M, N), B as (B, N, N) upper-bidiagonal blocks
+    (the reference's M×N B is zero below row N), and V_Bᵀ (B, N, N).  With
+    ``compute_uv=False`` the two bases are ``None``.  Computes in f32 and
+    returns the input's dtype.
+    """
+    if a.ndim != 3:
+        raise ValueError(f"expected (B, M, N), got {tuple(a.shape)}")
+    bsz, m, n = a.shape
+    if m < n:
+        raise ValueError(f"HBD expects M >= N, got {tuple(a.shape[1:])}; "
+                         f"transpose first")
+    orig_dtype = a.dtype
+    dev = a.device
+    a = a.to(torch.float32).clone()
+    diag = torch.zeros((bsz, n), dtype=torch.float32, device=dev)
+    sup = torch.zeros((bsz, n), dtype=torch.float32, device=dev)
+
+    # ---- reduction loop: reflectors retained in A's reduced wings ----
+    for i in range(n):
+        q, v_l = house(a[:, i:, i])
+        diag[:, i] = q
+        house_mm_update(q, v_l, a[:, i:, i + 1:], 0)
+        a[:, i:, i] = v_l
+        if i < n - 1:
+            qr, v_r = house(a[:, i, i + 1:])
+            sup[:, i] = qr
+            house_mm_update(qr, v_r, a[:, i + 1:, i + 1:], 1)
+            a[:, i, i + 1:] = v_r
+
+    b = torch.diag_embed(diag)
+    if n > 1:
+        b = b + torch.diag_embed(sup[:, :-1], 1)
+    if not compute_uv:
+        return None, b.to(orig_dtype), None
+
+    # ---- accumulation loop, i = N-1..0 (thin U_B) ----
+    u_b = torch.zeros((bsz, m, n), dtype=torch.float32, device=dev)
+    idx = torch.arange(n, device=dev)
+    u_b[:, idx, idx] = 1.0
+    v_bt = torch.eye(n, dtype=torch.float32, device=dev).repeat(bsz, 1, 1)
+    for i in range(n - 1, -1, -1):
+        house_mm_update(diag[:, i], a[:, i:, i], u_b[:, i:, i:], 0)
+        if i < n - 1:
+            house_mm_update(sup[:, i], a[:, i, i + 1:],
+                            v_bt[:, i + 1:, i + 1:], 1)
+    return u_b.to(orig_dtype), b.to(orig_dtype), v_bt.to(orig_dtype)
 
 
 def householder_bidiagonalize(a: torch.Tensor, compute_uv: bool = True
@@ -80,41 +138,9 @@ def householder_bidiagonalize(a: torch.Tensor, compute_uv: bool = True
     Returns the thin U_B (M×N), B as the N×N upper-bidiagonal block (the
     reference's M×N B is zero below row N), and V_Bᵀ (N×N).  With
     ``compute_uv=False`` the two bases are ``None``.  Computes in f32 and
-    returns the input's dtype.
+    returns the input's dtype.  The batched loop with one member.
     """
-    m, n = a.shape
-    if m < n:
-        raise ValueError(f"HBD expects M >= N, got {tuple(a.shape)}; "
-                         f"transpose first")
-    orig_dtype = a.dtype
-    a = a.to(torch.float32).clone()
-    diag = torch.zeros(n, dtype=torch.float32, device=a.device)
-    sup = torch.zeros(n, dtype=torch.float32, device=a.device)
-
-    # ---- reduction loop: reflectors retained in A's reduced wings ----
-    for i in range(n):
-        q, v_l = house(a[i:, i])
-        diag[i] = q
-        house_mm_update(q, v_l, a[i:, i + 1:], 0)
-        a[i:, i] = v_l
-        if i < n - 1:
-            qr, v_r = house(a[i, i + 1:])
-            sup[i] = qr
-            house_mm_update(qr, v_r, a[i + 1:, i + 1:], 1)
-            a[i, i + 1:] = v_r
-
-    b = torch.diag(diag)
-    if n > 1:
-        b = b + torch.diag(sup[:-1], 1)
-    if not compute_uv:
-        return None, b.to(orig_dtype), None
-
-    # ---- accumulation loop, i = N-1..0 (thin U_B) ----
-    u_b = torch.zeros((m, n), dtype=torch.float32, device=a.device)
-    u_b[:n].fill_diagonal_(1.0)
-    v_bt = torch.eye(n, dtype=torch.float32, device=a.device)
-    for i in range(n - 1, -1, -1):
-        house_mm_update(diag[i], a[i:, i], u_b[i:, i:], 0)
-        if i < n - 1:
-            house_mm_update(sup[i], a[i, i + 1:], v_bt[i + 1:, i + 1:], 1)
-    return u_b.to(orig_dtype), b.to(orig_dtype), v_bt.to(orig_dtype)
+    if a.ndim != 2:
+        raise ValueError(f"expected (M, N), got {tuple(a.shape)}")
+    u, b, vt = householder_bidiagonalize_batched(a[None], compute_uv)
+    return (None if u is None else u[0], b[0], None if vt is None else vt[0])

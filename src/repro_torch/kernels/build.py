@@ -1,11 +1,13 @@
-"""Build the port's CUDA source with ``nvcc`` and load it with ``ctypes``.
+"""Build the port's CUDA sources with ``nvcc`` and load them with ``ctypes``.
 
-The ``.cu`` under a kernel's ``csrc/`` has a plain C interface, so it
+Each ``.cu`` under a kernel's ``csrc/`` has a plain C interface, so it
 compiles in seconds without PyTorch's headers (no ``ninja`` needed).  The
 shared library lands in ``kernels/_build/`` beside the sources, named by a
 hash of the source and the flags, so an unchanged source is built once per
-checkout.  A failed build raises with the compiler's output; nothing falls
-back to the plain PyTorch path.
+checkout; ``load_many`` starts one ``nvcc`` per source, all together.  A
+failed build raises with the compiler's output; nothing falls back to the
+plain PyTorch path.  Every launch function returns a ``cudaError_t`` code,
+which ``raise_on`` turns into an exception.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+from typing import List
 
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -46,20 +49,75 @@ def _target(src: Path) -> Path:
     return BUILD_DIR / f"{src.stem}-{h.hexdigest()[:16]}.so"
 
 
+def _start(src: Path, tgt: Path) -> subprocess.Popen:
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = tgt.with_suffix(f".{os.getpid()}.tmp")
+    return subprocess.Popen(
+        [find_nvcc(), *ARCH_FLAGS, *NVCC_FLAGS, "-o", str(tmp), str(src)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def _finish(src: Path, tgt: Path, proc: subprocess.Popen) -> None:
+    out, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed on {src} (exit {proc.returncode}):\n{out}")
+    os.replace(tgt.with_suffix(f".{os.getpid()}.tmp"), tgt)
+    tgt.with_suffix(".log").write_text(out)
+
+
+def load_many(srcs) -> List[ctypes.CDLL]:
+    """Build every source not built yet, all ``nvcc`` processes started
+    together, then load them in order.  Raises with the first failing
+    compiler's output once every build has ended."""
+    srcs = [Path(s) for s in srcs]
+    tgts = [_target(s) for s in srcs]
+    procs = [(s, t, _start(s, t)) for s, t in zip(srcs, tgts)
+             if not t.exists()]
+    errors = []
+    for s, t, proc in procs:
+        try:
+            _finish(s, t, proc)
+        except RuntimeError as e:
+            errors.append(e)
+    if errors:
+        raise errors[0]
+    return [ctypes.CDLL(str(t)) for t in tgts]
+
+
 def load(src: Path) -> ctypes.CDLL:
     """Build ``src`` into a shared library unless it is built already, then
     load it.  Raises with the compiler's output if ``nvcc`` fails."""
-    src = Path(src)
-    tgt = _target(src)
-    if not tgt.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = tgt.with_suffix(f".{os.getpid()}.tmp")
-        p = subprocess.run(
-            [find_nvcc(), *ARCH_FLAGS, *NVCC_FLAGS, "-o", str(tmp), str(src)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        if p.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed on {src} (exit {p.returncode}):\n{p.stdout}")
-        os.replace(tmp, tgt)
-        tgt.with_suffix(".log").write_text(p.stdout)
-    return ctypes.CDLL(str(tgt))
+    return load_many([src])[0]
+
+
+def raise_on(lib: ctypes.CDLL, code: int, name: str) -> None:
+    """Raise if a launch function returned a CUDA error code (0 = launched).
+    ``lib`` exports ``error_string(int)``."""
+    if code != 0:
+        msg = lib.error_string(code).decode()
+        raise RuntimeError(f"{name} launch failed: {msg} (cudaError {code})")
+
+
+def load_bound(src: Path, signatures) -> ctypes.CDLL:
+    """``load(src)`` with ``error_string`` and each ``{name: argtypes}`` of
+    ``signatures`` declared."""
+    lib = load(src)
+    lib.error_string.argtypes = [ctypes.c_int]
+    lib.error_string.restype = ctypes.c_char_p
+    for name, argtypes in signatures.items():
+        fn = getattr(lib, name)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int      # a cudaError_t code, 0 = launched
+    return lib
+
+
+def check_cuda(name: str, *tensors, dtype=None) -> None:
+    """The checks every wrapper makes before passing pointers: each tensor
+    on one CUDA device, of ``dtype`` where given."""
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device != dev:
+            raise ValueError(f"{name}: tensor on {t.device}, expected {dev}")
+        if dtype is not None and t.dtype != dtype:
+            raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")

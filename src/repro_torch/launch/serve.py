@@ -6,13 +6,13 @@
 Runs on the first CUDA card unless ``--device cpu`` is given.  With
 ``--weights tt`` the weights (random from ``--seed``, given a power-law
 spectrum as trained weights have) are TT-compressed on the device (paper
-Algorithm 1, serial plan), converted to TT-native params, and decode
-contracts activations straight through the cores with the hand-written
-kernels — the dense matrices are never rebuilt.  ``--weights tt-int8``
-stores the cores as int8.  ``--verify`` (default on) reruns the batch on the
-reconstructed dense weights and reports logit parity; for int8 it reports
-tie-tolerant next-token agreement over every teacher-forced prompt
-position.
+Algorithm 1 on the default batched plan, as the reference's serve does),
+converted to TT-native params, and decode contracts activations straight
+through the cores with the hand-written kernels — the dense matrices are
+never rebuilt.  ``--weights tt-int8`` stores the cores as int8.
+``--verify`` (default on) reruns the batch on the reconstructed dense
+weights and reports logit parity; for int8 it reports tie-tolerant
+next-token agreement over every teacher-forced prompt position.
 """
 
 from __future__ import annotations
@@ -79,7 +79,7 @@ def _tt_setup(params, args, cfg):
     Returns (params_tt, payload, info)."""
     quant = _quant_of(args.weights)
     comp = _comp.TTCompressor(_comp.CompressionPolicy(
-        eps=args.tt_eps, min_size=8192, plan="serial"))
+        eps=args.tt_eps, min_size=8192))
     dev = params.embed.device
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
@@ -93,6 +93,8 @@ def _tt_setup(params, args, cfg):
     info = {
         "compress_s": compress_s,
         "payload_ratio": report.ratio,
+        "plan_fingerprint": report.plan_fingerprint,
+        "exec_stats": report.exec_stats,
         "ranks": {path: c.tt.ranks for path, c in _tree.leaves_with_paths(
             payload, is_leaf=_comp.is_compressed_param) if c.kind == "tt"},
         "dense_bytes": _dense_bytes(payload),

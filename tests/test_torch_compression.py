@@ -102,9 +102,15 @@ def test_compressor_serial_matches_jax(rng):
     assert {ppay[k].kind for k in tree} == {"tt", "raw"}
 
 
-def test_compressor_batched_plan_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        comp.TTCompressor().compress({"w": torch.zeros(64, 64)})
+def test_compressor_batched_plan_not_ported(rng):
+    """The default policy (``plan="batched"``) compresses; an unknown plan
+    still raises."""
+    w = _decayed(rng, (8, 16, 32))
+    payload, report = comp.TTCompressor().compress({"w": torch.from_numpy(w)})
+    assert payload["w"].kind == "tt"
+    assert report.plan_fingerprint and report.exec_stats.bucket_launches == 1
+    rec = comp.TTCompressor().decompress(payload)["w"].numpy()
+    assert _rel_err(rec, w) <= comp.CompressionPolicy().eps
     with pytest.raises(ValueError):
         comp.TTCompressor().compress({"w": torch.zeros(4)}, plan="bogus")
 

@@ -28,7 +28,15 @@ def _port_files():
 
 def test_port_files_exist():
     names = {p.name for p in _port_files()}
-    assert {"chip_smoke.py", "ops.py", "serve.py", "hbd.py"} <= names
+    assert {"chip_smoke.py", "ops.py", "serve.py", "hbd.py", "blocked.py",
+            "plan.py", "batch_exec.py", "resnet32.py",
+            "engine_cases.py"} <= names
+    kernels = REPO / "src" / "repro_torch" / "kernels"
+    for name in ("tt_contract", "householder", "block_update",
+                 "singular_sort", "frob_truncate"):
+        assert (kernels / name / "csrc" / f"{name}.cu").is_file(), name
+        assert {"ops.py", "ref.py"} <= {p.name for p in (kernels / name
+                                                         ).glob("*.py")}
 
 
 @pytest.mark.parametrize("path", _port_files(),

@@ -1,8 +1,17 @@
-"""The four CUDA chain kernels against their plain PyTorch versions on the
-card (max|Δ| <= 2e-4·max|ref|), at full-width qwen1.5-0.5b chain shapes and
-ragged small ones, B in {1, 4, 64}, with float32, bfloat16 and int8 tail
-cores.  Needs an NVIDIA GPU: the kernels have no CPU mode, so every test
-here skips without one.  Imports no JAX, so it runs on the card's machine:
+"""The CUDA kernels against their plain PyTorch versions on the card.
+
+* The four chain kernels (max|Δ| <= 2e-4·max|ref|), at full-width
+  qwen1.5-0.5b chain shapes and ragged small ones, B in {1, 4, 64}, with
+  float32, bfloat16 and int8 tail cores.
+* The TTD-engine kernels (panel factor, WY passes, sort, truncation; the
+  case table of ``kernels/engine_cases.py``, shared with ``chip_smoke.py``)
+  at full-width shapes, ResNet-32's batched shapes, ragged shapes and
+  panels on either side of the shared-memory limit: 2e-4·max|ref|, sorted
+  σ, index vectors and ranks exactly equal; and the blocked QR built on
+  them.
+
+Needs an NVIDIA GPU: the kernels have no CPU mode, so every test here skips
+without one.  Imports no JAX, so it runs on the card's machine:
 
     python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py
 """
@@ -10,6 +19,8 @@ here skips without one.  Imports no JAX, so it runs on the card's machine:
 import pytest
 import torch
 
+from repro_torch.kernels import engine_cases as ec
+from repro_torch.kernels.householder import ops as hh
 from repro_torch.kernels.tt_contract import cases, ops
 
 
@@ -54,3 +65,59 @@ def test_kernel_launch_counts_and_checks(cuda_device):
     with pytest.raises(ValueError):
         ops.tt_contract_2(x.t().contiguous().t(), g0, g1)
     ops.reset_launches()
+
+
+# full-width qwen1.5-0.5b (eps 0.2) and ResNet-32 shapes of the engine
+# kernels: the tallest panels and WY updates, σ lengths
+ENGINE_FULL_SHAPES = {
+    "panel": [(2_883_584, 32), (1_048_576, 32), (24_576, 32)],
+    "panel_batched": [(9, 576, 32), (9, 4096, 32), (9, 27, 32)],
+    "wy_vta": [(24_576, 2_784, 32), (2_883_584, 32, 32)],
+    "wy_apply": [(24_576, 2_784, 32), (2_883_584, 32, 32)],
+    "wy_vta_batched": [(9, 576, 64, 32), (9, 4096, 32, 32)],
+    "wy_apply_batched": [(9, 576, 64, 32), (9, 4096, 32, 32)],
+    "sort": [(2_816,), (1_024,)], "sort_batched": [(9, 64), (9, 3)],
+    "truncate": [(2_816,), (24,)], "truncate_batched": [(9, 64), (9, 3)],
+}
+ENGINE_CASES = [(kind, shape) for table in (ENGINE_FULL_SHAPES,
+                                            ec.RAGGED_SHAPES)
+                for kind, shapes in table.items() for shape in shapes]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,shape", ENGINE_CASES)
+def test_engine_kernels_match_plain_on_card(cuda_device, kind, shape):
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    case = ec.engine_case(kind, shape, gen, cuda_device)
+    mod, counter = ec.COUNTERS[kind]
+    before = mod.launches[counter]
+    got, ref = case.kernel(), case.plain()
+    torch.cuda.synchronize()
+    ok, _, parts = ec.compare(case, got, ref, 2e-4)
+    assert ok, (kind, shape, parts)
+    assert mod.launches[counter] == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("delta", [0, 1])
+def test_panel_on_either_side_of_shared_memory(cuda_device, delta):
+    rows = hh.smem_rows(32) + delta
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    case = ec.engine_case("panel", (rows, 32), gen, cuda_device)
+    ok, _, parts = ec.compare(case, case.kernel(), case.plain(), 2e-4)
+    assert ok, (rows, parts)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n", [(24_576, 1_024), (4_096, 9), (40, 33)])
+def test_qr_blocked_on_card(cuda_device, m, n):
+    gen = torch.Generator(device=cuda_device).manual_seed(2)
+    a = torch.randn(m, n, generator=gen, device=cuda_device)
+    q, r = hh.qr_blocked(a)
+    eye = torch.eye(n, device=cuda_device)
+    rel = torch.linalg.vector_norm(q @ r - a) / torch.linalg.vector_norm(a)
+    assert float(rel) <= 1e-5
+    assert float((q.T @ q - eye).abs().max()) <= 1e-5
+    ref = torch.linalg.svdvals(a.double())
+    d = float((torch.linalg.svdvals(r.double()) - ref).abs().max())
+    assert d <= 1e-5 * float(ref.max())

@@ -93,8 +93,8 @@ def test_svd_rejects_unknown_paths():
     a = torch.zeros(4, 3)
     with pytest.raises(ValueError):
         svd(a, method="nope")
-    with pytest.raises(NotImplementedError):
-        svd(a, hbd_impl="blocked")
+    with pytest.raises(ValueError, match="hbd_impl"):
+        svd(a, hbd_impl="nope")
 
 
 def test_sorting_basis_is_a_stable_descending_permutation():
