@@ -52,9 +52,31 @@
       blocked SVD of wq's 24,576 x 1,024 unfolding against
       ``torch.linalg.svd`` in float64 (max|Δσ| <= 1e-4 σ_max); times of kernel,
       plain version and library call (geqrf, matmul, baddbmm, sort).
-5. Prints one ``{"kernels": [...]}`` JSON line (all twelve ported kernels),
-   the card line again, and as the last line ``{"ok": true, "device":
-   {...}}``.
+5. Hybrid phase (``models/rglru.py``, ``kernels/flash_attention``):
+   a. the main path ``serve --arch recurrentgemma-2b --weights tt`` at full
+      width and depth (26 layers, d_model 2560, 10 Q heads and 1 KV head x
+      256, d_ff 7680, vocab 256,000, window 2048), random weights from seed
+      0 with the spectral decay, eps 0.2: compression seconds, ranks,
+      resident bytes, every TT leaf within eps, chain, sort and truncation
+      kernels launched with no plain call;
+   b. prefill through ``make_prefill_step`` at B = 2, S = 4096 with the
+      same compression's dense bf16 and TT-native weights, ``impl="pallas"``
+      (flash kernel: 8 launches per prefill, one per attention layer) and
+      ``impl="xla"`` (plain chunked attention): tokens/s, and the bf16
+      differences printed.  Gates in float32 activations at F32_TOL of
+      scale: G1 pallas vs xla with dense weights (and ``make_eval_step``
+      at B = 1, S = 4096: losses within 1e-5 relative); G2 TT-native
+      prefill (flash + chain kernels) vs reconstruct-then-prefill (plain);
+      G3 prefill's last logits vs decode stepped through the ring-buffer
+      window cache at S = 2176 (the ring wraps);
+   c. the flash kernel against its plain version at every shape of
+      ``kernels/flash_attention/cases.py`` in float32 (TOL of max|ref|) and
+      bfloat16 (2e-2 on unit-normal inputs); S = 200 must raise; times of
+      kernel, plain version and one ``scaled_dot_product_attention`` call
+      at the path's shape.
+6. Prints one ``{"kernels": [...]}`` JSON line (all thirteen ported
+   kernels), the card line again, and as the last line ``{"ok": true,
+   "device": {...}}``.
 
 Exits non-zero without a CUDA card, and on any failed phase.
 """
@@ -150,15 +172,17 @@ def _on(device, params):
 
 
 def _f32_model(model, device):
-    """The model in float32 with a float32 KV cache: no bf16 rounding of
-    activations, so two runs differ only by float32 summation order."""
-    from repro_torch.models import transformer
+    """The model in float32 with a float32 decode cache: no bf16 rounding
+    of activations, so two runs differ only by float32 summation order."""
+    from repro_torch.models import rglru, transformer
     from repro_torch.models.registry import build
     cfg32 = dataclasses.replace(model.cfg, dtype="float32")
+    init_cache = {"dense": transformer.init_cache,
+                  "hybrid": rglru.init_cache}[cfg32.family]
     return dataclasses.replace(
         build(cfg32, device=device),
-        init_cache=lambda b, n: transformer.init_cache(
-            cfg32, b, n, device, dtype=torch.float32))
+        init_cache=lambda b, n: init_cache(cfg32, b, n, device,
+                                           dtype=torch.float32))
 
 
 def kernels_vs_plain(serve_mod, out, weights: str) -> float:
@@ -188,17 +212,15 @@ def kernels_vs_plain(serve_mod, out, weights: str) -> float:
     return d / scale
 
 
-def f32_oracle(serve_mod, out) -> float:
-    """TT-native serving against reconstruct-then-serve with the same cores,
-    everything in float32 (no bf16 rounding): the compress → convert →
-    TT-apply path computes the dense model's function."""
+def f32_params(payload, family: str):
+    """(TT-native params, reconstructed dense params) of one payload, both
+    in float32: TT leaves keep float32 cores, every other leaf is the same
+    float32 reconstruction in both."""
     from repro_torch import tree
     from repro_torch.core import compression as comp
     from repro_torch.core.tt import tt_reconstruct
     from repro_torch.core.tt_linear import is_tt_linear
     from repro_torch.models import common
-    model, payload = out["model"], out["payload"]
-    m32 = _f32_model(model, DEVICE)
     rx32 = tree.map_leaves(
         lambda c: (tt_reconstruct(c.tt).reshape(c.orig_shape)
                    if c.kind == "tt" else c.raw.float()),
@@ -206,9 +228,20 @@ def f32_oracle(serve_mod, out) -> float:
     dense32 = dict(tree.leaves_with_paths(rx32))
     tt32 = tree.map_with_path(
         lambda path, x: x if is_tt_linear(x) else dense32[path],
-        common.tt_native_params(payload, family=model.cfg.family,
+        common.tt_native_params(payload, family=family,
                                 core_dtype=torch.float32),
         is_leaf=is_tt_linear)
+    return tt32, rx32
+
+
+def f32_oracle(serve_mod, out) -> float:
+    """TT-native serving against reconstruct-then-serve with the same cores,
+    everything in float32 (no bf16 rounding): the compress → convert →
+    TT-apply path computes the dense model's function."""
+    from repro_torch.models import common
+    model = out["model"]
+    m32 = _f32_model(model, DEVICE)
+    tt32, rx32 = f32_params(out["payload"], model.cfg.family)
     prompts = torch.as_tensor(out["prompts"], dtype=torch.int64,
                               device=DEVICE)
     tf_tt = serve_mod.teacher_forced_logits(m32, tt32, prompts)
@@ -224,13 +257,14 @@ def f32_oracle(serve_mod, out) -> float:
 
 
 def kernel_modules():
-    """The ops modules of every ported kernel (chain and engine)."""
+    """The ops modules of every ported kernel (chain, engine, attention)."""
     from repro_torch.kernels.block_update import ops as wy
+    from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.frob_truncate import ops as ft
     from repro_torch.kernels.householder import ops as hh
     from repro_torch.kernels.singular_sort import ops as ss
     from repro_torch.kernels.tt_contract import ops as tc
-    return (tc, hh, wy, ss, ft)
+    return (tc, hh, wy, ss, ft, fa)
 
 
 def reset_counts() -> None:
@@ -727,6 +761,259 @@ def blocked_svd_check(wq: torch.Tensor) -> float:
     return d
 
 
+# ---------------------------------------------------------------------------
+# Hybrid phase: full-width recurrentgemma-2b, prefill through the flash kernel
+# ---------------------------------------------------------------------------
+
+HYBRID_ARCH = "recurrentgemma-2b"
+HYBRID_SERVE_ARGS = ["--arch", HYBRID_ARCH, "--batch", "4", "--prompt-len",
+                     "16", "--gen", "16", "--seed", "0", "--tt-eps", "0.2"]
+PREFILL_B, PREFILL_S = 2, 4096
+RING_S = 17 * 128    # past the 2,048 window: the decode ring buffer wraps
+BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak (700 W)
+ATTN_LAYERS = 8      # attention layers of recurrentgemma-2b: flash launches
+
+
+def _timed(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _counted(fn):
+    """(fn(), seconds, launch counts) with the counters zeroed just before
+    the call and read just after."""
+    reset_counts()
+    out, secs = _timed(fn)
+    counts = read_counts()
+    reset_counts()
+    return out, secs, counts
+
+
+def _gap(got, ref):
+    """(max|got - ref|, max|ref|)."""
+    return (float((got.float() - ref.float()).abs().max()),
+            float(ref.float().abs().max()))
+
+
+def hybrid_serve(serve_mod) -> dict:
+    """The main path: ``serve --weights tt`` at full width and depth; the
+    compression runs once and its params and payload serve the prefill
+    checks below."""
+    args = serve_mod.parse_args(HYBRID_SERVE_ARGS + ["--weights", "tt"])
+    out, wall, counts = _counted(lambda: serve_mod.serve(args))
+    info, ver, gen = out["info"], out["verify"], out["generated"]
+    vocab = out["model"].cfg.vocab_size
+    check(gen.shape == (4, 16) and gen.min() >= 0 and gen.max() < vocab,
+          f"hybrid: generated tokens {gen.shape} out of range")
+    check(bool(torch.isfinite(out["run"]["prompt_logits"]).all()),
+          "hybrid: non-finite logits")
+    check(counts.get("plain_chains", 0) == 0,
+          f"hybrid: {counts.get('plain_chains')} chains took the plain path")
+    for k in ("tt_contract_2", "tt_contract_3", "bitonic_sort_desc",
+              "frob_truncate"):
+        check(counts.get(k, 0) > 0,
+              f"hybrid serve: kernel {k} never launched")
+    check_no_plain(counts, "hybrid serve")
+    print(f"[chip_smoke] hybrid serve (tt): compressed in "
+          f"{info['compress_s']:.3f}s (incl. the spectral decay), payload "
+          f"ratio {info['payload_ratio']:.3f}, plan "
+          f"{info['exec_stats'].bucket_launches} bucket passes, "
+          f"{info['exec_stats'].serial_params} serial params; decode "
+          f"{out['tok_per_s']:.2f} tok/s; wall {wall:.1f}s; launches {counts}")
+    print(f"[chip_smoke] hybrid ranks: " + json.dumps(
+        {k: list(v) for k, v in info["ranks"].items()}))
+    print(f"[chip_smoke] hybrid resident weight bytes: dense "
+          f"{info['dense_bytes']:,} -> tt-native {info['tt_bytes']:,}")
+    print(f"[chip_smoke] hybrid reference-oracle gate (reported): "
+          f"max|d|/scale {ver['max_diff'] / ver['scale']:.4f} (bound 0.05)")
+    eps_worst = eps_gate(out["dense_params"], out["payload"],
+                         "hybrid, full width")
+    return {"out": out, "counts": counts, "wall_s": wall,
+            "eps_worst": eps_worst,
+            "summary": {"compress_s": info["compress_s"],
+                        "payload_ratio": info["payload_ratio"],
+                        "tok_per_s": out["tok_per_s"],
+                        "dense_bytes": info["dense_bytes"],
+                        "tt_bytes": info["tt_bytes"],
+                        "verify": ver, "launches": counts,
+                        "eps_worst": eps_worst}}
+
+
+def _check_prefill_counts(counts, what, tt: bool) -> None:
+    check(counts.get("flash_attention", 0) == ATTN_LAYERS,
+          f"{what}: {counts.get('flash_attention', 0)} flash launches, want "
+          f"{ATTN_LAYERS} (one per attention layer)")
+    if tt:
+        check(counts.get("tt_contract_2", 0) > 0
+              and counts.get("tt_contract_3", 0) > 0
+              and counts.get("plain_chains", 0) == 0,
+              f"{what}: chain kernels not all launched: {counts}")
+    check_no_plain(counts, what)
+
+
+def hybrid_prefill(served: dict) -> dict:
+    """Prefill and eval of full-width recurrentgemma-2b through the entry
+    points (``make_prefill_step`` / ``make_eval_step``): tokens/s in bf16
+    with dense and TT-native weights, then the float32 gates G1-G3."""
+    from repro_torch import tree
+    from repro_torch.core import compression as comp
+    from repro_torch.train.steps import make_eval_step, make_prefill_step
+    out = served["out"]
+    model = out["model"]
+    vocab = model.cfg.vocab_size
+    g = torch.Generator(device=DEVICE).manual_seed(1)
+    tokens = torch.randint(0, vocab, (PREFILL_B, PREFILL_S), generator=g,
+                           device=DEVICE)
+    batch = {"tokens": tokens}
+    res = {"tok_per_s": {}, "counts": {}}
+
+    # bf16, as served: throughput; the differences are printed, not gated
+    rx = comp.TTCompressor().decompress(out["payload"])
+    weights = {"dense": out["dense_params"], "tt": out["params"],
+               "reconstruct": rx}
+    logits = {}
+    for name, impl in (("dense", "pallas"), ("dense", "xla"),
+                       ("tt", "pallas"), ("tt", "xla"),
+                       ("reconstruct", "xla")):
+        step = make_prefill_step(model, impl=impl)
+        step(weights[name], batch)                     # warm-up
+        lg, secs, counts = _counted(lambda: step(weights[name], batch))
+        logits[(name, impl)] = lg
+        check(lg.shape == (PREFILL_B, vocab)
+              and bool(torch.isfinite(lg).all()),
+              f"hybrid prefill {name}/{impl}: logits {tuple(lg.shape)} "
+              f"not finite")
+        if impl == "pallas":
+            _check_prefill_counts(counts, f"hybrid prefill {name} bf16",
+                                  tt=name == "tt")
+        if name != "reconstruct":
+            tps = PREFILL_B * PREFILL_S / secs
+            res["tok_per_s"][f"{name}/{impl}"] = tps
+            res["counts"][f"{name}/{impl}"] = counts
+            print(f"[chip_smoke] hybrid prefill bf16 {name} impl={impl}: "
+                  f"B={PREFILL_B} S={PREFILL_S} in {secs:.3f}s = {tps:.0f} "
+                  f"tok/s; launches {counts}")
+    for key, (a, b) in {"G1_bf16": (("dense", "pallas"), ("dense", "xla")),
+                        "G2_bf16": (("tt", "pallas"),
+                                    ("reconstruct", "xla"))}.items():
+        d, scale = _gap(logits[a], logits[b])
+        res[key] = d / scale
+        print(f"[chip_smoke] hybrid {key} (reported): {a} vs {b} "
+              f"max|d|/scale {d / scale:.3e}")
+    del rx, weights, logits
+
+    # float32 activations and weights: the gates
+    m32 = _f32_model(model, DEVICE)
+    dense32 = tree.map_leaves(lambda x: x.float(), out["dense_params"])
+    lg = {}
+    for impl in ("pallas", "xla"):
+        lg[impl], _, counts = _counted(
+            lambda: make_prefill_step(m32, impl=impl)(dense32, batch))
+        if impl == "pallas":
+            _check_prefill_counts(counts, "hybrid prefill dense f32", False)
+    d, scale = _gap(lg["pallas"], lg["xla"])
+    res["G1"] = d / scale
+    check(d <= F32_TOL * scale, f"G1: flash vs plain prefill max|d| {d:.3e} "
+                                f"over {F32_TOL} * scale {scale:.3e}")
+    print(f"[chip_smoke] hybrid G1 f32: prefill impl=pallas vs xla, dense "
+          f"weights: max|d|/scale {d / scale:.3e}")
+    batch1 = {"tokens": tokens[:1], "labels": torch.roll(tokens[:1], -1, 1)}
+    loss = {}
+    for impl in ("pallas", "xla"):
+        metrics, secs = _timed(
+            lambda: make_eval_step(m32, impl=impl)(dense32, batch1))
+        loss[impl] = float(metrics["loss"])
+        print(f"[chip_smoke] hybrid eval f32 impl={impl}: B=1 S={PREFILL_S} "
+              f"loss {loss[impl]:.6f} in {secs:.3f}s")
+    rel = abs(loss["pallas"] - loss["xla"]) / abs(loss["xla"])
+    res["eval_loss"], res["eval_rel"] = loss, rel
+    check(math.isfinite(loss["xla"]) and rel <= 1e-5,
+          f"G1 eval: losses {loss} differ by {rel:.3e} relative")
+
+    ring = tokens[:1, :RING_S]
+    last = make_prefill_step(m32, impl="pallas")(dense32, {"tokens": ring})
+    cache = m32.init_cache(1, RING_S)
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        for t in range(RING_S):
+            stepped, cache = m32.decode_step(dense32, cache, ring[:, t:t + 1])
+    torch.cuda.synchronize()
+    d, scale = _gap(last, stepped)
+    res["G3"] = d / scale
+    check(d <= F32_TOL * scale, f"G3: prefill vs decode-stepped logits at "
+                                f"position {RING_S - 1}: max|d| {d:.3e} over "
+                                f"{F32_TOL} * scale {scale:.3e}")
+    print(f"[chip_smoke] hybrid G3 f32: prefill (flash, window 2048) vs "
+          f"{RING_S} decode steps through the ring cache "
+          f"({time.perf_counter() - t0:.1f}s): last-position max|d|/scale "
+          f"{d / scale:.3e}")
+    del dense32, cache
+
+    tt32, rx32 = f32_params(out["payload"], model.cfg.family)
+    got, _, counts = _counted(
+        lambda: make_prefill_step(m32, impl="pallas")(tt32, batch))
+    _check_prefill_counts(counts, "hybrid prefill TT f32", tt=True)
+    ref = make_prefill_step(m32, impl="xla")(rx32, batch)
+    d, scale = _gap(got, ref)
+    res["G2"] = d / scale
+    check(d <= F32_TOL * scale, f"G2: TT-native vs reconstruct prefill "
+                                f"max|d| {d:.3e} over {F32_TOL} * scale "
+                                f"{scale:.3e}")
+    print(f"[chip_smoke] hybrid G2 f32: TT-native prefill (flash + chain "
+          f"kernels) vs reconstruct-then-prefill (plain): max|d|/scale "
+          f"{d / scale:.3e}")
+    return res
+
+
+def flash_phase() -> dict:
+    """The flash kernel against its plain version at every shape of
+    ``kernels/flash_attention/cases.py``; times at the hybrid path's
+    shape in bf16."""
+    from repro_torch.kernels.flash_attention import cases as fc
+    from repro_torch.kernels.flash_attention import ops as fa
+    gen = torch.Generator(device=DEVICE).manual_seed(4)
+    rec = {"max_abs_err": 0.0}
+    for shape in fc.SHAPES:
+        for dtype in fc.DTYPES:
+            case = fc.flash_case(shape, dtype, gen, DEVICE)
+            got, ref = case.kernel(), case.plain()
+            torch.cuda.synchronize()
+            err, scale = _gap(got, ref)
+            limit = TOL * scale if dtype == torch.float32 else 2e-2
+            ok = err <= limit and got.dtype == dtype
+            check(ok, f"flash_attention {shape} {dtype}: max|d| {err:.3e} "
+                      f"over {limit:.3e}")
+            rec["max_abs_err"] = max(rec["max_abs_err"], err)
+            line = (f"[kernel] flash_attention {str(dtype)[6:]} "
+                    f"(B, S, Hq, Hkv, D, causal, window)={shape}: max|d| "
+                    f"{err:.3e} (ref max {scale:.3e}) "
+                    f"{'ok' if ok else 'FAIL'}")
+            if shape != fc.PATH_SHAPE or dtype != torch.bfloat16:
+                print(line)
+                continue
+            ms, p_ms = time_ms(case.kernel, 10), time_ms(case.plain, 3)
+            l_ms = time_ms(case.library, 10)
+            bound = max(case.nbytes / HBM_BYTES_PER_S,
+                        case.flops / BF16_FLOPS) * 1e3
+            rec.update(ms=ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=bound,
+                       bytes=case.nbytes, flops=case.flops)
+            print(f"{line}; kernel {ms:.4f} ms, plain {p_ms:.4f} ms, sdpa "
+                  f"{l_ms:.4f} ms, bound {bound:.5f} ms ({case.flops:.4e} "
+                  f"FLOPs, {case.nbytes:,} bytes)")
+    raised = False
+    bad = torch.zeros((1, 200, 2, 64), device=DEVICE)
+    try:
+        fa.mha_flash(bad, bad[:, :, :1], bad[:, :, :1])
+    except ValueError:
+        raised = True
+    check(raised, "flash_attention: S = 200 (not a multiple of 128) did not "
+                  "raise")
+    return rec
+
+
 # (JSON name, engine_cases kinds (timed first), source, TPU kernel, launch
 # counters summed)
 ENGINE_ROWS = [
@@ -792,6 +1079,16 @@ def main() -> int:
     erec = engine_kernel_phase(engine_shapes(full["tts"], resnet["plan"]))
     svd_d = blocked_svd_check(full["wq"])
     print(f"[chip_smoke] TTD-engine phase {time.perf_counter() - t0:.1f}s")
+    del full["tts"], full["wq"]
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    served = hybrid_serve(serve_mod)
+    hybrid = hybrid_prefill(served)
+    del served["out"]
+    torch.cuda.empty_cache()
+    frec = flash_phase()
+    print(f"[chip_smoke] hybrid phase {time.perf_counter() - t0:.1f}s")
 
     kernels = []
     for name in ops.KERNELS:
@@ -829,6 +1126,27 @@ def main() -> int:
             "library_ms": r["library_ms"],
             "timed": f"one call at the largest main-path shape {r['shape']}",
         })
+    kernels.append({
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                  "flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:93",
+        "launches": hybrid["counts"]["dense/pallas"].get(
+            "flash_attention", 0),
+        "max_abs_err": frec["max_abs_err"],
+        "ms": frec["ms"], "plain_ms": frec["plain_ms"],
+        "bound_ms": frec["bound_ms"],
+        "bound_by": ("bytes" if frec["bytes"] / HBM_BYTES_PER_S
+                     >= frec["flops"] / BF16_FLOPS else "operations"),
+        "library_ms": frec["library_ms"],
+        "timed": "one bf16 call at the hybrid prefill's shape (B 2, S 4096, "
+                 "10 Q heads, 1 KV head, D 256, window 2048); launches per "
+                 "prefill",
+    })
+    print(f"[chip_smoke] hybrid summary: " + json.dumps({
+        "serve": served["summary"],
+        "prefill": {k: v for k, v in hybrid.items() if k != "counts"},
+        "prefill_launches": hybrid["counts"]}))
     print(f"[chip_smoke] engine summary: " + json.dumps({
         "full_width": {k: full[k] for k in (
             "secs", "decay_s", "eps_worst", "f32_oracle", "breakdown")},

@@ -1,15 +1,16 @@
-"""Architecture registry of the port (the dense configs this slice serves)."""
+"""Architecture registry of the port (the configs of the ported families)."""
 
 from __future__ import annotations
 
 import importlib
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import HybridConfig, ModelConfig
 
-# canonical names → module ids; the other archs of the JAX zoo are queued
-# in ROADMAP.md (queue 1, item 8)
+# canonical names → module ids; the other archs of the JAX zoo come with
+# their families (ROADMAP.md queue 1, item 7)
 NAME_TO_MODULE = {
     "qwen1.5-0.5b": "qwen1p5_0p5b",
+    "recurrentgemma-2b": "recurrentgemma_2b",
 }
 
 
@@ -23,4 +24,4 @@ def get_config(name: str) -> ModelConfig:
     return importlib.import_module(f"repro_torch.configs.{mod_name}").CONFIG
 
 
-__all__ = ["ModelConfig", "NAME_TO_MODULE", "get_config"]
+__all__ = ["HybridConfig", "ModelConfig", "NAME_TO_MODULE", "get_config"]

@@ -1,21 +1,29 @@
-"""Model configuration: the ``ModelConfig`` fields the dense family reads.
+"""Model configuration: the ``ModelConfig`` fields the ported families read.
 
-A copy of the dense-family part of the JAX package's ``configs/base.py``
-(the port never imports that package).  Families other than ``dense`` and
-the training/sharding knobs come with later slices.
+A copy of the dense- and hybrid-family parts of the JAX package's
+``configs/base.py`` (the port never imports that package).  The other
+families and the training/sharding knobs come with later slices.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Tuple
+
+
+@dataclass(frozen=True)
+class HybridConfig:
+    """recurrentgemma-style mixed blocks."""
+    pattern: Tuple[str, ...] = ("rglru", "rglru", "attn")
+    lru_width: Optional[int] = None
+    window: int = 2048
 
 
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                   # dense (the only family this slice serves)
+    family: str                   # dense | hybrid (the families ported so far)
     num_layers: int
     d_model: int
     num_heads: int
@@ -33,6 +41,7 @@ class ModelConfig:
     # local/global attention: every ``global_every``-th layer global
     window: Optional[int] = None
     global_every: Optional[int] = None
+    hybrid: Optional[HybridConfig] = None
     dtype: str = "bfloat16"
 
     @property
@@ -46,7 +55,7 @@ class ModelConfig:
     def reduced(self, **overrides) -> "ModelConfig":
         """Smoke-test-sized variant of the same family (tiny dims)."""
         base = dict(
-            num_layers=min(self.num_layers, 2),
+            num_layers=min(self.num_layers, 2 if self.hybrid is None else 3),
             d_model=128,
             num_heads=4,
             num_kv_heads=(min(self.num_kv_heads, 4)
@@ -55,6 +64,9 @@ class ModelConfig:
             vocab_size=512,
             head_dim=32 if self.head_dim else None,
         )
+        if self.hybrid:
+            base["hybrid"] = HybridConfig(
+                pattern=self.hybrid.pattern, lru_width=128, window=32)
         if self.window:
             base["window"] = 32
         base.update(overrides)

@@ -1,0 +1,86 @@
+"""Inputs for holding the flash-attention kernel against its plain version.
+
+One table of shapes and one way to draw a case's inputs, shared by
+``chip_smoke.py`` (which checks and times the kernel on the card) and
+``tests/test_torch_kernels_cuda.py``:
+
+    case = flash_case(shape, dtype, gen, device)
+    case.kernel(), case.plain(), case.library()
+
+``shape`` is ``(B, S, Hq, Hkv, D, causal, window)``; q, k, v are drawn
+unit-normal in ``dtype``.  ``case.nbytes`` and ``case.flops`` are what the
+function must move and do on these inputs: each of q, k, v read once, o
+written once, and 4·D FLOPs (Q Kᵀ and P V) per live (query, key) pair of
+each Q head, counted from the mask.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.flash_attention import ops
+
+# recurrentgemma-2b's prefill at B = 2, S = 4,096: 10 Q heads, 1 KV head,
+# head dim 256, window 2,048
+PATH_SHAPE = (2, 4096, 10, 1, 256, True, 2048)
+# the JAX package's own sweep (tests/test_kernels.py)
+REFERENCE_SHAPES = [
+    (2, 256, 4, 2, 64, True, None),
+    (1, 128, 8, 8, 32, False, None),
+    (2, 256, 4, 1, 64, True, 64),
+    (1, 512, 2, 1, 128, True, 128),
+]
+# causal without a window, non-causal, one block (S = 128), shorter than a
+# tile (S = 64, S = 100), every head dim, Hq/Hkv in {1, 2, 10}, windows that
+# are no multiple of the tile with S > window + 128
+EXTRA_SHAPES = [
+    (1, 1024, 10, 1, 256, True, None),
+    (1, 512, 10, 1, 256, False, None),
+    (1, 512, 4, 2, 128, False, 200),
+    (2, 128, 4, 2, 32, True, None),
+    (2, 64, 2, 1, 64, True, 16),
+    (1, 100, 2, 1, 64, True, None),
+    (1, 640, 10, 10, 256, True, 300),
+    (1, 384, 4, 4, 128, True, 100),
+]
+SHAPES = [PATH_SHAPE] + REFERENCE_SHAPES + EXTRA_SHAPES
+DTYPES = (torch.float32, torch.bfloat16)
+
+
+@dataclass
+class FlashCase:
+    kernel: Callable
+    plain: Callable
+    library: Callable
+    nbytes: int
+    flops: int
+
+
+def flash_case(shape, dtype: torch.dtype, gen: torch.Generator,
+               device) -> FlashCase:
+    b, s, hq, hkv, d, causal, window = shape
+
+    def rn(h):
+        return torch.randn((b, s, h, d), generator=gen,
+                           device=device).to(dtype)
+
+    q, k, v = rn(hq), rn(hkv), rn(hkv)
+    mask = ops.band_mask(s, causal, window, device)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+
+    def library():
+        return F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, enable_gqa=hq != hkv)
+
+    live = int(mask.sum())
+    return FlashCase(
+        kernel=lambda: ops.mha_flash(q, k, v, causal=causal, window=window),
+        plain=lambda: ops.mha_flash_plain(q, k, v, causal=causal,
+                                          window=window),
+        library=library,
+        nbytes=(2 * q.numel() + k.numel() + v.numel()) * q.element_size(),
+        flops=4 * b * hq * d * live)

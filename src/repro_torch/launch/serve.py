@@ -3,6 +3,10 @@
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch qwen1.5-0.5b --weights tt --batch 4 --prompt-len 16 --gen 16
 
+``--arch`` is any ported config (``repro_torch.configs.NAME_TO_MODULE``:
+qwen1.5-0.5b of the dense family, recurrentgemma-2b of the hybrid family);
+every family serves through the same ``Model`` API.
+
 Runs on the first CUDA card unless ``--device cpu`` is given.  With
 ``--weights tt`` the weights (random from ``--seed``, given a power-law
 spectrum as trained weights have) are TT-compressed on the device (paper
@@ -76,7 +80,7 @@ def tie_tolerant_agreement(tf_q: np.ndarray, tf_ref: np.ndarray) -> float:
 def _tt_setup(params, args, cfg):
     """Compress on the params' device and build the TT-native params.
 
-    Returns (params_tt, payload, info)."""
+    Returns (params_tt, payload, info, the dense params compressed)."""
     quant = _quant_of(args.weights)
     comp = _comp.TTCompressor(_comp.CompressionPolicy(
         eps=args.tt_eps, min_size=8192))
@@ -117,13 +121,14 @@ def _tt_setup(params, args, cfg):
                  f"{wide_leaf_b:,} -> {info['ttq_leaf_bytes']:,} "
                  f"(dense form {dense_leaf_b:,})")
     info["line"] = line
-    return params_tt, payload, info
+    return params_tt, payload, info, params
 
 
 def serve(args) -> dict:
     """Run one batch; returns tok/s, the tokens, the run, the verify
-    numbers and the setup info, plus the model, params, payload and prompts
-    for further checks."""
+    numbers and the setup info, plus the model, the served params, the
+    dense params they came from, the payload and the prompts for further
+    checks."""
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
@@ -132,10 +137,10 @@ def serve(args) -> dict:
     b = args.batch
     max_len = args.prompt_len + args.gen
 
-    params = model.init(args.seed)
+    params = dense = model.init(args.seed)
     payload, info = None, {}
     if args.weights != "dense":
-        params, payload, info = _tt_setup(params, args, cfg)
+        params, payload, info, dense = _tt_setup(params, args, cfg)
         print(f"[serve] compressed on {model.device} in "
               f"{info['compress_s']:.3f}s; TT ranks "
               + ", ".join(f"{k} {v}" for k, v in info["ranks"].items()))
@@ -180,7 +185,8 @@ def serve(args) -> dict:
     print(f"[serve] sample generation: {gen[0][:16].tolist()}")
     return {"tok_per_s": tps, "generated": gen, "run": run,
             "verify": verify, "info": info, "model": model,
-            "params": params, "payload": payload, "prompts": prompts}
+            "params": params, "dense_params": dense, "payload": payload,
+            "prompts": prompts}
 
 
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:

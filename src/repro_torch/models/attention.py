@@ -1,9 +1,14 @@
-"""Attention for single-token decode: QKV projection (with bias and
-qk-norm), the KV-cache write, and LSE-style attention over the cache.
+"""Attention: QKV projection (with bias and qk-norm), causal prefill
+attention (``causal_attend``), and single-token decode (the KV-cache write
+and LSE-style attention over the cache).
 
-Port of the decode part of the JAX package's ``models/attention.py``.  The
-attention itself is plain PyTorch, as the reference's ``decode_attend`` is
-plain jnp.
+Port of the JAX package's ``models/attention.py``.  ``causal_attend`` has
+the reference's two implementations: ``impl="xla"``, the plain chunked
+path, and ``impl="pallas"``, which goes to the hand-written flash kernel
+(``kernels/flash_attention``).  The reference's TPU-mesh tuning knobs
+(``opt_bf16_scores``, ``opt_bf16_probs``, ``opt_causal_unroll``,
+``opt_attn_remat``) are not ported (ROADMAP queue 1).  Decode attention is
+plain PyTorch, as the reference's ``decode_attend`` is plain jnp.
 """
 
 from __future__ import annotations
@@ -84,6 +89,53 @@ def _gqa_out(p, v):
     b, hkv, g, s, t = p.shape
     out = torch.einsum("bhgst,bthd->bshgd", p, v.float())
     return out.reshape(b, s, hkv * g, -1)
+
+
+def causal_attend(q, k, v, cfg, window: Optional[int] = None,
+                  is_global=False, chunk: int = 1024, impl: str = "xla"):
+    """Causal (optionally windowed) self-attention: q (B, S, Hq, Dh) against
+    k, v (B, S, Hkv, Dh) → (B, S, Hq, Dh) in q's dtype.
+
+    ``impl="pallas"`` runs the flash kernel when ``is_global`` is a Python
+    bool, as the reference takes its Pallas kernel only when the flag is
+    not traced; the window is dropped for a global layer.  Otherwise the
+    plain path attends in query chunks of ``chunk`` rows (O(S·chunk)
+    scores), with ``is_global`` widening the window to the whole prefix."""
+    if impl not in ("xla", "pallas"):
+        raise ValueError(f"unknown attention impl {impl!r}")
+    if impl == "pallas" and not isinstance(is_global, torch.Tensor):
+        from repro_torch.kernels.flash_attention.ops import mha_flash
+        win = None if (window is None or is_global) else window
+        return mha_flash(q.contiguous(), k.contiguous(), v.contiguous(),
+                         causal=True, window=win).to(q.dtype)
+
+    s = q.shape[1]
+    scale = q.shape[-1] ** -0.5
+    if s <= chunk:
+        return _attend_block(q, k, v, torch.arange(s, device=q.device),
+                             window, is_global, scale)
+    if s % chunk:
+        raise ValueError(f"sequence length {s} is not a multiple of the "
+                         f"attention chunk {chunk}")
+    return torch.cat([
+        _attend_block(q[:, i:i + chunk], k, v,
+                      torch.arange(i, i + chunk, device=q.device),
+                      window, is_global, scale)
+        for i in range(0, s, chunk)], dim=1)
+
+
+def _attend_block(qblk, k, v, q_pos, window, is_global, scale):
+    """One query block against the whole k, v, masked by position."""
+    k_pos = torch.arange(k.shape[1], device=k.device)
+    mask = q_pos[:, None] >= k_pos[None, :]
+    if window is not None:
+        in_window = q_pos[:, None] - k_pos[None, :] < window
+        mask = mask & (in_window | torch.as_tensor(is_global,
+                                                   device=k.device))
+    scores = _gqa_scores(qblk, k) * scale
+    scores = torch.where(mask, scores, torch.tensor(NEG_INF,
+                                                     device=k.device))
+    return _gqa_out(torch.softmax(scores, dim=-1), v).to(qblk.dtype)
 
 
 def decode_attend(q, k_cache, v_cache, pos, cfg,

@@ -1,10 +1,10 @@
 """Shared model machinery: building blocks, TT-serving registry, decode driver.
 
-Port of the dense-decode subset of the JAX package's ``models/common.py``:
+Port of the serving subset of the JAX package's ``models/common.py``:
 
   * building blocks — ``rms_norm``, ``apply_rope``, ``activate``,
-    initializers, and ``dense_apply``, the one raw-vs-TT weight dispatch
-    point every projection goes through;
+    initializers, ``unembed``, ``cross_entropy_loss``, and ``dense_apply``,
+    the one raw-vs-TT weight dispatch point every projection goes through;
   * TT-native serving — the per-family rule registry and
     ``tt_native_params``, plus ``layer_at`` (a layer's view of stacked
     params: TT leaves select their lead row, cores stay shared);
@@ -140,7 +140,8 @@ def tt_native_params(compressed, core_dtype=None, family: Optional[str] = None,
 
     def one(name, c):
         leaf = None
-        if _comp.is_compressed_param(c) and c.kind == "tt":
+        if _comp.is_compressed_param(c) and c.kind == "tt" \
+                and c.crop_dims is None:
             for rule in rules:
                 if rule.pattern.search(name):
                     leaf = _ttl.tt_linear_from_tt(
@@ -191,12 +192,28 @@ def embed_init(gen: torch.Generator, shape, dtype=torch.bfloat16,
 
 
 def unembed(x: torch.Tensor, embed: torch.Tensor,
-            softcap: Optional[float] = None) -> torch.Tensor:
-    """Logits = x @ Eᵀ in f32, optional tanh softcap."""
+            softcap: Optional[float] = None,
+            real_vocab: Optional[int] = None) -> torch.Tensor:
+    """Logits = x @ Eᵀ in f32, optional tanh softcap; with a padded table
+    (``real_vocab`` < rows) the padding rows' logits are -1e30."""
     logits = torch.einsum("...d,vd->...v", x.float(), embed.float())
     if softcap is not None:
         logits = torch.tanh(logits / softcap) * softcap
+    if real_vocab is not None and real_vocab < embed.shape[0]:
+        logits[..., real_vocab:] = -1e30
     return logits
+
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
+                       mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean token negative log-likelihood in f32: logits (B, S, V), labels
+    (B, S); with ``mask`` the mean over the masked-in tokens."""
+    lp = torch.log_softmax(logits.float(), dim=-1)
+    ll = torch.gather(lp, -1, labels.long()[..., None])[..., 0]
+    if mask is None:
+        return -ll.mean()
+    mask = mask.float()
+    return -(ll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
 
 
 # ---------------------------------------------------------------------------

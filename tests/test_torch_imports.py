@@ -30,10 +30,11 @@ def test_port_files_exist():
     names = {p.name for p in _port_files()}
     assert {"chip_smoke.py", "ops.py", "serve.py", "hbd.py", "blocked.py",
             "plan.py", "batch_exec.py", "resnet32.py",
-            "engine_cases.py"} <= names
+            "engine_cases.py", "rglru.py", "steps.py",
+            "recurrentgemma_2b.py"} <= names
     kernels = REPO / "src" / "repro_torch" / "kernels"
     for name in ("tt_contract", "householder", "block_update",
-                 "singular_sort", "frob_truncate"):
+                 "singular_sort", "frob_truncate", "flash_attention"):
         assert (kernels / name / "csrc" / f"{name}.cu").is_file(), name
         assert {"ops.py", "ref.py"} <= {p.name for p in (kernels / name
                                                          ).glob("*.py")}

@@ -9,6 +9,11 @@
   panels on either side of the shared-memory limit: 2e-4·max|ref|, sorted
   σ, index vectors and ranks exactly equal; and the blocked QR built on
   them.
+* The flash-attention kernel (``kernels/flash_attention/cases.py``, shared
+  with ``chip_smoke.py``): the hybrid path's shape, the reference's sweep,
+  causal without window, non-causal, S in {64, 100, 128}, every head dim,
+  Hq/Hkv in {1, 2, 10}, float32 (max|Δ| <= 2e-4·max|ref|) and bfloat16
+  (max|Δ| <= 2e-2 on unit-normal inputs, the reference's own limit).
 
 Needs an NVIDIA GPU: the kernels have no CPU mode, so every test here skips
 without one.  Imports no JAX, so it runs on the card's machine:
@@ -20,6 +25,8 @@ import pytest
 import torch
 
 from repro_torch.kernels import engine_cases as ec
+from repro_torch.kernels.flash_attention import cases as flash_cases
+from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.householder import ops as hh
 from repro_torch.kernels.tt_contract import cases, ops
 
@@ -121,3 +128,36 @@ def test_qr_blocked_on_card(cuda_device, m, n):
     ref = torch.linalg.svdvals(a.double())
     d = float((torch.linalg.svdvals(r.double()) - ref).abs().max())
     assert d <= 1e-5 * float(ref.max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", flash_cases.SHAPES, ids=str)
+@pytest.mark.parametrize("dtype", flash_cases.DTYPES, ids=str)
+def test_flash_attention_matches_plain_on_card(cuda_device, shape, dtype):
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    case = flash_cases.flash_case(shape, dtype, gen, cuda_device)
+    before = flash_ops.launches["flash_attention"]
+    got, ref = case.kernel(), case.plain()
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == ref.shape
+    err = float((got.float() - ref.float()).abs().max())
+    tol = (2e-4 * float(ref.float().abs().max()) if dtype == torch.float32
+           else 2e-2)
+    assert err <= tol, (shape, dtype, err)
+    assert flash_ops.launches["flash_attention"] == before + 1
+
+
+@pytest.mark.cuda
+def test_flash_attention_checks(cuda_device):
+    q = torch.randn(1, 200, 2, 64, device=cuda_device)
+    with pytest.raises(ValueError, match="multiple of min"):
+        flash_ops.mha_flash(q, q[:, :, :1], q[:, :, :1])
+    q = torch.randn(1, 128, 2, 48, device=cuda_device)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_ops.mha_flash(q, q, q)
+    q = torch.randn(1, 128, 2, 64, device=cuda_device)
+    with pytest.raises(TypeError):
+        flash_ops.mha_flash(q, q.bfloat16(), q)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_ops.mha_flash(q, q.transpose(1, 2).contiguous().transpose(1, 2),
+                            q)
