@@ -61,22 +61,31 @@
       kernels launched with no plain call;
    b. prefill through ``make_prefill_step`` at B = 2, S = 4096 with the
       same compression's dense bf16 and TT-native weights, ``impl="pallas"``
-      (flash kernel: 8 launches per prefill, one per attention layer) and
+      (flash kernel: 8 launches per prefill, one per attention layer, all
+      on the bf16 tensor-core route ``flash_attention_mma``) and
       ``impl="xla"`` (plain chunked attention): tokens/s, and the bf16
       differences printed.  Gates in float32 activations at F32_TOL of
-      scale: G1 pallas vs xla with dense weights (and ``make_eval_step``
-      at B = 1, S = 4096: losses within 1e-5 relative); G2 TT-native
-      prefill (flash + chain kernels) vs reconstruct-then-prefill (plain);
-      G3 prefill's last logits vs decode stepped through the ring-buffer
-      window cache at S = 2176 (the ring wraps);
+      scale, every flash launch on the float32 FMA route
+      ``flash_attention_f32`` (8 per run): G1 pallas vs xla with dense
+      weights (and ``make_eval_step`` at B = 1, S = 4096: losses within
+      1e-5 relative); G2 TT-native prefill (flash + chain kernels) vs
+      reconstruct-then-prefill (plain); G3 prefill's last logits vs decode
+      stepped through the ring-buffer window cache at S = 2176 (the ring
+      wraps);
    c. the flash kernel against its plain version at every shape of
-      ``kernels/flash_attention/cases.py`` in float32 (TOL of max|ref|) and
-      bfloat16 (2e-2 on unit-normal inputs); S = 200 must raise; times of
-      kernel, plain version and one ``scaled_dot_product_attention`` call
-      at the path's shape.
-6. Prints one ``{"kernels": [...]}`` JSON line (all thirteen ported
-   kernels), the card line again, and as the last line ``{"ok": true,
-   "device": {...}}``.
+      ``kernels/flash_attention/cases.py`` in float32 (FMA route, TOL of
+      max|ref|) and bfloat16 (mma route, 2e-2 on unit-normal inputs), and
+      in bfloat16 also per element against the route's tile-wise plain
+      version ``mha_tiled`` (``cases.tiled_gap`` within ``TILED_ABS``, on
+      this draw and TILED_DRAWS more);
+      S = 200 must raise; ptxas's registers and spills of each route's
+      kernels, from the build log; at the path's shape, times of each
+      route, its plain version and one ``scaled_dot_product_attention``
+      call in the route's dtype, each route against its own bound (bf16
+      tensor-core rate for mma, float32 FMA rate for f32).
+6. Prints one ``{"kernels": [...]}`` JSON line (the twelve other ported
+   kernels and one entry per flash route), the card line again, and as
+   the last line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero without a CUDA card, and on any failed phase.
 """
@@ -86,6 +95,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -771,6 +781,7 @@ HYBRID_SERVE_ARGS = ["--arch", HYBRID_ARCH, "--batch", "4", "--prompt-len",
 PREFILL_B, PREFILL_S = 2, 4096
 RING_S = 17 * 128    # past the 2,048 window: the decode ring buffer wraps
 BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak (700 W)
+TILED_DRAWS = 5      # extra draws (seeds 0-4) of the bf16 check vs mha_tiled
 ATTN_LAYERS = 8      # attention layers of recurrentgemma-2b: flash launches
 
 
@@ -842,10 +853,13 @@ def hybrid_serve(serve_mod) -> dict:
                         "eps_worst": eps_worst}}
 
 
-def _check_prefill_counts(counts, what, tt: bool) -> None:
-    check(counts.get("flash_attention", 0) == ATTN_LAYERS,
-          f"{what}: {counts.get('flash_attention', 0)} flash launches, want "
-          f"{ATTN_LAYERS} (one per attention layer)")
+def _check_prefill_counts(counts, what, tt: bool, route: str) -> None:
+    """One flash launch per attention layer, all on ``route``."""
+    check(counts.get("flash_attention", 0) == ATTN_LAYERS
+          and counts.get(route, 0) == ATTN_LAYERS,
+          f"{what}: {counts.get('flash_attention', 0)} flash launches, "
+          f"{counts.get(route, 0)} of them on {route}; want {ATTN_LAYERS} "
+          f"(one per attention layer)")
     if tt:
         check(counts.get("tt_contract_2", 0) > 0
               and counts.get("tt_contract_3", 0) > 0
@@ -888,7 +902,8 @@ def hybrid_prefill(served: dict) -> dict:
               f"not finite")
         if impl == "pallas":
             _check_prefill_counts(counts, f"hybrid prefill {name} bf16",
-                                  tt=name == "tt")
+                                  tt=name == "tt",
+                                  route="flash_attention_mma")
         if name != "reconstruct":
             tps = PREFILL_B * PREFILL_S / secs
             res["tok_per_s"][f"{name}/{impl}"] = tps
@@ -913,7 +928,9 @@ def hybrid_prefill(served: dict) -> dict:
         lg[impl], _, counts = _counted(
             lambda: make_prefill_step(m32, impl=impl)(dense32, batch))
         if impl == "pallas":
-            _check_prefill_counts(counts, "hybrid prefill dense f32", False)
+            _check_prefill_counts(counts, "hybrid prefill dense f32", False,
+                                  route="flash_attention_f32")
+            res["counts"]["dense_f32/pallas"] = counts
     d, scale = _gap(lg["pallas"], lg["xla"])
     res["G1"] = d / scale
     check(d <= F32_TOL * scale, f"G1: flash vs plain prefill max|d| {d:.3e} "
@@ -923,8 +940,11 @@ def hybrid_prefill(served: dict) -> dict:
     batch1 = {"tokens": tokens[:1], "labels": torch.roll(tokens[:1], -1, 1)}
     loss = {}
     for impl in ("pallas", "xla"):
-        metrics, secs = _timed(
+        metrics, secs, counts = _counted(
             lambda: make_eval_step(m32, impl=impl)(dense32, batch1))
+        if impl == "pallas":
+            _check_prefill_counts(counts, "hybrid eval dense f32", False,
+                                  route="flash_attention_f32")
         loss[impl] = float(metrics["loss"])
         print(f"[chip_smoke] hybrid eval f32 impl={impl}: B=1 S={PREFILL_S} "
               f"loss {loss[impl]:.6f} in {secs:.3f}s")
@@ -934,7 +954,10 @@ def hybrid_prefill(served: dict) -> dict:
           f"G1 eval: losses {loss} differ by {rel:.3e} relative")
 
     ring = tokens[:1, :RING_S]
-    last = make_prefill_step(m32, impl="pallas")(dense32, {"tokens": ring})
+    last, _, counts = _counted(lambda: make_prefill_step(m32, impl="pallas")(
+        dense32, {"tokens": ring}))
+    _check_prefill_counts(counts, "hybrid G3 prefill f32", False,
+                          route="flash_attention_f32")
     cache = m32.init_cache(1, RING_S)
     t0 = time.perf_counter()
     with torch.inference_mode():
@@ -955,7 +978,8 @@ def hybrid_prefill(served: dict) -> dict:
     tt32, rx32 = f32_params(out["payload"], model.cfg.family)
     got, _, counts = _counted(
         lambda: make_prefill_step(m32, impl="pallas")(tt32, batch))
-    _check_prefill_counts(counts, "hybrid prefill TT f32", tt=True)
+    _check_prefill_counts(counts, "hybrid prefill TT f32", tt=True,
+                          route="flash_attention_f32")
     ref = make_prefill_step(m32, impl="xla")(rx32, batch)
     d, scale = _gap(got, ref)
     res["G2"] = d / scale
@@ -970,12 +994,16 @@ def hybrid_prefill(served: dict) -> dict:
 
 def flash_phase() -> dict:
     """The flash kernel against its plain version at every shape of
-    ``kernels/flash_attention/cases.py``; times at the hybrid path's
-    shape in bf16."""
+    ``kernels/flash_attention/cases.py``; times of each route at the hybrid
+    path's shape: bf16 on the mma route, float32 on the FMA route."""
+    from repro_torch.kernels import build as kbuild
     from repro_torch.kernels.flash_attention import cases as fc
     from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.flash_attention import ref as fref
     gen = torch.Generator(device=DEVICE).manual_seed(4)
-    rec = {"max_abs_err": 0.0}
+    peak = {torch.bfloat16: BF16_FLOPS, torch.float32: F32_FLOPS}
+    rec = {dtype: {"max_abs_err": 0.0} for dtype in fc.DTYPES}
+    rec[torch.bfloat16]["tiled_gap"] = -math.inf
     for shape in fc.SHAPES:
         for dtype in fc.DTYPES:
             case = fc.flash_case(shape, dtype, gen, DEVICE)
@@ -986,23 +1014,60 @@ def flash_phase() -> dict:
             ok = err <= limit and got.dtype == dtype
             check(ok, f"flash_attention {shape} {dtype}: max|d| {err:.3e} "
                       f"over {limit:.3e}")
-            rec["max_abs_err"] = max(rec["max_abs_err"], err)
-            line = (f"[kernel] flash_attention {str(dtype)[6:]} "
+            r = rec[dtype]
+            r["max_abs_err"] = max(r["max_abs_err"], err)
+            line = (f"[kernel] {fa.ROUTES[dtype][0]} {str(dtype)[6:]} "
                     f"(B, S, Hq, Hkv, D, causal, window)={shape}: max|d| "
-                    f"{err:.3e} (ref max {scale:.3e}) "
-                    f"{'ok' if ok else 'FAIL'}")
-            if shape != fc.PATH_SHAPE or dtype != torch.bfloat16:
+                    f"{err:.3e} (ref max {scale:.3e})")
+            if dtype == torch.bfloat16:   # this draw and TILED_DRAWS more
+                draws = [case] + [fc.flash_case(
+                    shape, dtype, torch.Generator(device=DEVICE).manual_seed(
+                        seed), DEVICE) for seed in range(TILED_DRAWS)]
+                gap = max(fc.tiled_gap(c.kernel(), fa.mha_tiled(
+                    *c.inputs, causal=shape[5], window=shape[6]))
+                    for c in draws)
+                t_ok = gap <= fc.TILED_ABS
+                check(t_ok, f"flash_attention {shape} bf16 vs mha_tiled: "
+                            f"per-element gap {gap:.3e} over "
+                            f"{fc.TILED_ABS:.1e}")
+                r["tiled_gap"] = max(r["tiled_gap"], gap)
+                ok = ok and t_ok
+                line += (f", vs mha_tiled max(|d| - 2^-8|tiled|) over "
+                         f"{len(draws)} draws {gap:.3e} (limit "
+                         f"{fc.TILED_ABS:.1e})")
+            line += " ok" if ok else " FAIL"
+            if shape != fc.PATH_SHAPE:
                 print(line)
                 continue
-            ms, p_ms = time_ms(case.kernel, 10), time_ms(case.plain, 3)
-            l_ms = time_ms(case.library, 10)
+            fast = dtype == torch.bfloat16
+            ms = time_ms(case.kernel, 20 if fast else 5)
+            p_ms = time_ms(case.plain, 3)
+            l_ms = time_ms(case.library, 20 if fast else 5)
+            by_ops = case.flops / peak[dtype] >= case.nbytes / HBM_BYTES_PER_S
             bound = max(case.nbytes / HBM_BYTES_PER_S,
-                        case.flops / BF16_FLOPS) * 1e3
-            rec.update(ms=ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=bound,
-                       bytes=case.nbytes, flops=case.flops)
+                        case.flops / peak[dtype]) * 1e3
+            r.update(ms=ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=bound,
+                     bound_by="operations" if by_ops else "bytes")
             print(f"{line}; kernel {ms:.4f} ms, plain {p_ms:.4f} ms, sdpa "
                   f"{l_ms:.4f} ms, bound {bound:.5f} ms ({case.flops:.4e} "
-                  f"FLOPs, {case.nbytes:,} bytes)")
+                  f"FLOPs at {peak[dtype] / 1e12:.0f} TFLOP/s, "
+                  f"{case.nbytes:,} bytes; {bound / ms:.1%} of the bound)")
+    usage = kbuild.ptxas_usage(fa.SOURCE)
+    for dtype, kernel in ((torch.bfloat16, "flash_mma_kernel"),
+                          (torch.float32, "flash_attention_kernel")):
+        rec[dtype]["ptxas"] = {}
+        for fn, (regs, st, ld) in usage.items():
+            d = re.search(rf"{kernel}ILi(\d+)E", fn)
+            if d:
+                rec[dtype]["ptxas"][f"D{d.group(1)}"] = [regs, st, ld]
+        print(f"[kernel] ptxas {fa.ROUTES[dtype][0]} ({kernel}) "
+              f"[registers, spill store B, spill load B] per head dim: "
+              f"{json.dumps(rec[dtype]['ptxas'])}")
+        check(len(rec[dtype]["ptxas"]) == len(fa.HEAD_DIMS),
+              f"ptxas report of {kernel}: {rec[dtype]['ptxas']}")
+    print(f"[kernel] flash_attention_mma dynamic shared memory at D = 256: "
+          f"{(fref.BLOCK_ROWS + 4 * fref.BLOCK_KEYS) * 256 * 2:,} B "
+          f"(Q tile and two K/V stages, bf16)")
     raised = False
     bad = torch.zeros((1, 200, 2, 64), device=DEVICE)
     try:
@@ -1047,6 +1112,7 @@ def main() -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.tt_contract import cases, ops
     from repro_torch.launch import serve as serve_mod
 
@@ -1126,23 +1192,27 @@ def main() -> int:
             "library_ms": r["library_ms"],
             "timed": f"one call at the largest main-path shape {r['shape']}",
         })
-    kernels.append({
-        "name": "flash_attention", "route": "cuda",
-        "source": "src/repro_torch/kernels/flash_attention/csrc/"
-                  "flash_attention.cu",
-        "replaces": "src/repro/kernels/flash_attention/kernel.py:93",
-        "launches": hybrid["counts"]["dense/pallas"].get(
-            "flash_attention", 0),
-        "max_abs_err": frec["max_abs_err"],
-        "ms": frec["ms"], "plain_ms": frec["plain_ms"],
-        "bound_ms": frec["bound_ms"],
-        "bound_by": ("bytes" if frec["bytes"] / HBM_BYTES_PER_S
-                     >= frec["flops"] / BF16_FLOPS else "operations"),
-        "library_ms": frec["library_ms"],
-        "timed": "one bf16 call at the hybrid prefill's shape (B 2, S 4096, "
-                 "10 Q heads, 1 KV head, D 256, window 2048); launches per "
-                 "prefill",
-    })
+    for dtype, run in ((torch.bfloat16, "dense/pallas"),
+                       (torch.float32, "dense_f32/pallas")):
+        name = fa_ops.ROUTES[dtype][0]
+        r = frec[dtype]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                      "flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention/kernel.py:93",
+            "launches": hybrid["counts"][run].get(name, 0),
+            "max_abs_err": r["max_abs_err"],
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"],
+            "ptxas": r["ptxas"],
+            "timed": f"one {str(dtype)[6:]} call at the hybrid prefill's "
+                     "shape (B 2, S 4096, 10 Q heads, 1 KV head, D 256, "
+                     "window 2048); launches per prefill ("
+                     + ("dense bf16" if dtype == torch.bfloat16 else
+                        "dense f32, gate G1") + ")",
+        })
     print(f"[chip_smoke] hybrid summary: " + json.dumps({
         "serve": served["summary"],
         "prefill": {k: v for k, v in hybrid.items() if k != "counts"},

@@ -7,7 +7,9 @@ hash of the source and the flags, so an unchanged source is built once per
 checkout; ``load_many`` starts one ``nvcc`` per source, all together.  A
 failed build raises with the compiler's output; nothing falls back to the
 plain PyTorch path.  Every launch function returns a ``cudaError_t`` code,
-which ``raise_on`` turns into an exception.
+which ``raise_on`` turns into an exception.  ``nvcc`` runs with ``-Xptxas
+-v``; its output is kept beside the library and ``ptxas_usage`` reads the
+registers and spills of each kernel from it.
 """
 
 from __future__ import annotations
@@ -15,10 +17,11 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
-from typing import List
+from typing import Dict, List, Tuple
 
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -89,6 +92,31 @@ def load(src: Path) -> ctypes.CDLL:
     """Build ``src`` into a shared library unless it is built already, then
     load it.  Raises with the compiler's output if ``nvcc`` fails."""
     return load_many([src])[0]
+
+
+def parse_ptxas(log: str) -> Dict[str, Tuple[int, int, int]]:
+    """``{entry function: (registers, spill store bytes, spill load
+    bytes)}`` of a ``ptxas -v`` report, mangled names as ptxas gives them."""
+    usage, fn, spills = {}, None, (0, 0)
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            fn, spills = m.group(1), (0, 0)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spills = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn:
+            usage[fn] = (int(m.group(1)), *spills)
+            fn = None
+    return usage
+
+
+def ptxas_usage(src: Path) -> Dict[str, Tuple[int, int, int]]:
+    """``parse_ptxas`` of the report kept when ``src`` was built (build it
+    first)."""
+    return parse_ptxas(_target(Path(src)).with_suffix(".log").read_text())
 
 
 def raise_on(lib: ctypes.CDLL, code: int, name: str) -> None:

@@ -5,13 +5,16 @@ One table of shapes and one way to draw a case's inputs, shared by
 ``tests/test_torch_kernels_cuda.py``:
 
     case = flash_case(shape, dtype, gen, device)
-    case.kernel(), case.plain(), case.library()
+    case.kernel(), case.plain(), case.library(); q, k, v = case.inputs
 
 ``shape`` is ``(B, S, Hq, Hkv, D, causal, window)``; q, k, v are drawn
 unit-normal in ``dtype``.  ``case.nbytes`` and ``case.flops`` are what the
 function must move and do on these inputs: each of q, k, v read once, o
 written once, and 4·D FLOPs (Q Kᵀ and P V) per live (query, key) pair of
 each Q head, counted from the mask.
+
+``tiled_gap`` holds the bf16 route to its tile-wise plain version
+``ops.mha_tiled`` element by element.
 """
 
 from __future__ import annotations
@@ -49,10 +52,21 @@ EXTRA_SHAPES = [
 ]
 SHAPES = [PATH_SHAPE] + REFERENCE_SHAPES + EXTRA_SHAPES
 DTYPES = (torch.float32, torch.bfloat16)
+# The bf16 route against ``ops.mha_tiled`` (the same tiles, skips and
+# roundings of P), per element: |kernel - tiled| <= TILED_REL·|tiled| +
+# TILED_ABS.  TILED_REL covers the kernel's one rounding of O / l to bf16
+# (half an ulp, at most 2^-8·|o|); TILED_ABS the two float32 summation
+# orders and the rare p that rounds to bf16 the other way under them (one
+# bf16 ulp of p, times v / l); set from ``chip_smoke.py``'s readings on an
+# H100 (6 draws at every shape; PERF.md), small beside the median |o| of
+# 0.03 at the path's shape.
+TILED_REL = 2 ** -8
+TILED_ABS = 2e-3
 
 
 @dataclass
 class FlashCase:
+    inputs: tuple
     kernel: Callable
     plain: Callable
     library: Callable
@@ -78,9 +92,17 @@ def flash_case(shape, dtype: torch.dtype, gen: torch.Generator,
 
     live = int(mask.sum())
     return FlashCase(
+        inputs=(q, k, v),
         kernel=lambda: ops.mha_flash(q, k, v, causal=causal, window=window),
         plain=lambda: ops.mha_flash_plain(q, k, v, causal=causal,
                                           window=window),
         library=library,
         nbytes=(2 * q.numel() + k.numel() + v.numel()) * q.element_size(),
         flops=4 * b * hq * d * live)
+
+
+def tiled_gap(got: torch.Tensor, tiled: torch.Tensor) -> float:
+    """max over elements of |got - tiled| - TILED_REL·|tiled|: the kernel
+    agrees with ``mha_tiled`` when this is at most ``TILED_ABS``."""
+    return float(((got.float() - tiled).abs() - TILED_REL * tiled.abs())
+                 .max())

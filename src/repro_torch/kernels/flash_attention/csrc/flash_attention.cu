@@ -3,7 +3,7 @@
 // Replaces the Pallas kernel of src/repro/kernels/flash_attention/kernel.py
 // (flash_attention / _flash_kernel, reached through ops.mha_flash): causal,
 // optionally windowed attention with an online softmax in float32.
-//   * q is scaled by sm_scale (D^-1/2) before Q K^T;
+//   * scores are q . k * sm_scale (D^-1/2);
 //   * a score is kept where q_pos >= k_pos (causal) and q_pos - k_pos <
 //     window (window > 0); masked scores are -1e30, finite, as the
 //     reference's, so a row's first tile that is wholly masked gets weight 1
@@ -14,24 +14,46 @@
 // model hands them over; Q head h reads KV head h / (Hq / Hkv), so GQA needs
 // no repeated copy of the KV heads (the reference's jnp.repeat).
 //
-// Design: one block per (64 query rows, head, batch row), 256 threads in a
-// 16 x 16 grid.  The scaled Q tile stays in shared memory in float32; the
-// key range is walked in 64-row K/V tiles, widened to float32 on the load.
-// Each tile: a 4 x 4 register tile of scores per thread (Q K^T), masked and
-// written to shared memory; four threads per row take the row max and the
-// exponentials (online softmax, m and l per row in shared memory); then the
-// 4 x (D/16) output accumulators of each thread, in registers, are rescaled
-// and take P V.  Tiles wholly outside the causal band or the window are not
-// visited; the result is the reference's, whose extra tiles contribute 0.
-// Shared memory rows are padded by one float so that column reads do not
-// collide in a bank; at D = 256 the block uses 214,528 bytes (dynamic
-// shared memory, opted in above 48 KB).
+// Two routes, one per input type.
 //
-// Bound: at the hybrid path's shape (20 heads x 4,096 rows, D = 256, window
-// 2,048) the work is 1.29e11 FLOPs against 92 MB of traffic, so it is bound
-// by operations: 0.130 ms at the tensor cores' bf16 rate.  This kernel does
-// its products with float32 FMAs from shared memory (no tensor cores): a
-// simple, exact first version.  wgmma with TMA-fed bf16 tiles is later work.
+// bfloat16 (flash_attention_mma_bf16): the tensor-core kernel.  Bound: at
+// the hybrid path's shape (B 2, S 4,096, 10 Q heads / 1 KV head, D 256,
+// window 2,048) the work is 1.29e11 FLOPs against 92 MB of traffic, so it is
+// bound by operations: 0.130 ms at the tensor cores' bf16 rate.  Design:
+//   * one block per (128 query rows, head, batch row); each of its 8 warps
+//     owns 16 query rows (64-row blocks of 4 warps measured slower at the
+//     path's shape); the query-tile index is the slowest grid dimension and
+//     runs backwards, so the heaviest tiles (full window, or the last rows
+//     under a causal mask) start first;
+//   * Q K^T and P V are mma.sync.m16n8k16 with bf16 operands and float32
+//     accumulators; operands come from shared memory through ldmatrix
+//     (.trans for V); Q stays in shared memory and is re-read per k-step;
+//   * 64-key K/V tiles are double-buffered with 16-byte cp.async.cg copies
+//     (rows >= S zero-filled); shared rows are XOR-swizzled on 16-byte
+//     chunks so that the eight rows an ldmatrix reads hit eight bank groups;
+//   * the online softmax stays in the warp: each thread holds two rows'
+//     m and l (partial l, summed over the quad at the end), row maxima are
+//     taken with quad shuffles; the scale D^-1/2 * log2(e) is applied to the
+//     float32 scores and exp2f is used; P is rounded to bf16 in registers
+//     (the score accumulator becomes the A fragment of P V), l is summed
+//     from the same float32 p, the 16 x D float32 output accumulator is
+//     rescaled by alpha every tile;
+//   * masks are computed only on tiles that straddle the diagonal, the
+//     window edge or S; a warp skips a tile wholly masked for its rows;
+//   * O / l goes to bf16, through the warp's own (dead) rows of the Q tile,
+//     out as coalesced 16-byte stores; rows >= S are never written.
+// At D = 256: 192 KB of shared memory, one block per SM.
+//
+// float32 (flash_attention_f32): the FMA kernel, exact in float32.  One
+// block per (64 query rows, head, batch row), 256 threads in a 16 x 16 grid.
+// The scaled Q tile stays in shared memory in float32; 64-row K/V tiles are
+// walked in order.  Each tile: a 4 x 4 register tile of scores per thread
+// (Q K^T), masked and written to shared memory; four threads per row take
+// the row max and the exponentials (online softmax, m and l per row in
+// shared memory); then the 4 x (D/16) output accumulators of each thread are
+// rescaled and take P V.  Rows are padded by one float against bank
+// conflicts; 214,528 bytes at D = 256.  Its bound is 1.29e11 FLOPs at the
+// 67 TFLOP/s of float32 FMAs: 1.92 ms.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -40,24 +62,16 @@
 
 namespace {
 
-constexpr int kBQ = 64;        // query rows per block
-constexpr int kBK = 64;        // key rows per tile
-constexpr int kThreads = 256;  // 16 x 16
+constexpr int kBK = 64;  // key rows per tile (both routes)
 constexpr float kMasked = -1e30f;
 constexpr unsigned kFull = 0xffffffffu;
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
+// ---------------------------------------------------------------------------
+// float32: FMA kernel
+// ---------------------------------------------------------------------------
+
+constexpr int kBQ = 64;        // query rows per block
+constexpr int kThreads = 256;  // 16 x 16
 
 template <int D>
 constexpr size_t smem_floats() {
@@ -66,11 +80,11 @@ constexpr size_t smem_floats() {
          (size_t)kBQ * (kBK + 1) + 3 * kBQ;
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads) flash_attention_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    T* __restrict__ o, int S, int Hq, int Hkv, int causal, int window,
-    float scale) {
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, float* __restrict__ o, int S, int Hq,
+    int Hkv, int causal, int window, float scale) {
   constexpr int QS = D + 1;
   constexpr int KS = D + 1;
   constexpr int PS = kBK + 1;
@@ -94,15 +108,15 @@ __global__ void __launch_bounds__(kThreads) flash_attention_kernel(
 
   const size_t q_row = (size_t)Hq * D;
   const size_t kv_row = (size_t)Hkv * D;
-  const T* qb = q + (size_t)b * S * q_row + (size_t)h * D;
-  const T* kb = k + (size_t)b * S * kv_row + (size_t)hk * D;
-  const T* vb = v + (size_t)b * S * kv_row + (size_t)hk * D;
-  T* ob = o + (size_t)b * S * q_row + (size_t)h * D;
+  const float* qb = q + (size_t)b * S * q_row + (size_t)h * D;
+  const float* kb = k + (size_t)b * S * kv_row + (size_t)hk * D;
+  const float* vb = v + (size_t)b * S * kv_row + (size_t)hk * D;
+  float* ob = o + (size_t)b * S * q_row + (size_t)h * D;
 
   for (int i = tid; i < kBQ * D; i += kThreads) {
     const int r = i / D, c = i % D;
     const int qr = q0 + r;
-    sq[r * QS + c] = qr < S ? to_f(qb[(size_t)qr * q_row + c]) * scale : 0.f;
+    sq[r * QS + c] = qr < S ? qb[(size_t)qr * q_row + c] * scale : 0.f;
   }
   if (tid < kBQ) {
     s_m[tid] = kMasked;
@@ -130,8 +144,8 @@ __global__ void __launch_bounds__(kThreads) flash_attention_kernel(
       const int kr = k0 + r;
       float kx = 0.f, vx = 0.f;
       if (kr < S) {
-        kx = to_f(kb[(size_t)kr * kv_row + c]);
-        vx = to_f(vb[(size_t)kr * kv_row + c]);
+        kx = kb[(size_t)kr * kv_row + c];
+        vx = vb[(size_t)kr * kv_row + c];
       }
       sk[r * KS + c] = kx;
       sv[r * D + c] = vx;
@@ -232,46 +246,347 @@ __global__ void __launch_bounds__(kThreads) flash_attention_kernel(
     if (l == 0.f) l = 1.f;
 #pragma unroll
     for (int j = 0; j < CPT; ++j)
-      ob[(size_t)qr * q_row + tx + 16 * j] = from_f<T>(acc[i][j] / l);
+      ob[(size_t)qr * q_row + tx + 16 * j] = acc[i][j] / l;
   }
 }
 
-template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
-           int Hq, int Hkv, int causal, int window, float scale,
-           void* stream) {
+template <int D>
+int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
+               int S, int Hq, int Hkv, int causal, int window, float scale,
+               void* stream) {
   const size_t smem = smem_floats<D>() * sizeof(float);
   cudaError_t e = cudaFuncSetAttribute(
-      flash_attention_kernel<T, D>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      flash_attention_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((S + kBQ - 1) / kBQ, Hq, B);
-  flash_attention_kernel<T, D><<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)o, S, Hq, Hkv, causal, window,
-      scale);
+  flash_attention_kernel<D><<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, (float*)o, S, Hq, Hkv,
+      causal, window, scale);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int dispatch(const void* q, const void* k, const void* v, void* o, int B,
-             int S, int Hq, int Hkv, int D, int causal, int window,
-             float scale, void* stream) {
-  switch (D) {
-    case 32:
-      return launch<T, 32>(q, k, v, o, B, S, Hq, Hkv, causal, window, scale,
-                           stream);
-    case 64:
-      return launch<T, 64>(q, k, v, o, B, S, Hq, Hkv, causal, window, scale,
-                           stream);
-    case 128:
-      return launch<T, 128>(q, k, v, o, B, S, Hq, Hkv, causal, window, scale,
-                            stream);
-    case 256:
-      return launch<T, 256>(q, k, v, o, B, S, Hq, Hkv, causal, window, scale,
-                            stream);
-    default:
-      return (int)cudaErrorInvalidValue;
+// ---------------------------------------------------------------------------
+// bfloat16: tensor-core kernel (mma.sync m16n8k16, ldmatrix, cp.async)
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// 16 bytes global -> shared, bypassing L1; src_bytes = 0 writes zeros
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t (&r)[4]) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t addr,
+                                              uint32_t (&r)[4]) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// c += a (16 x 16, row-major) * b (16 x 8, column-major), bf16 -> float32
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&p);
+}
+
+// Shared tiles hold D bf16 per row as D / 8 chunks of 16 bytes.  A row's
+// chunk index is XORed with swz_bits(row) so that the eight rows one
+// ldmatrix phase reads (same logical chunk) land in eight different 16-byte
+// bank groups: row % 8 for D >= 64; for D = 32 (four chunks a row, two rows
+// per 128 bytes) (row / 2) % 4.  Rows 16 apart share their bits, and the
+// XOR touches only a chunk index's low three bits, so chunk 8 j + c of row
+// 16 i + r sits at a fixed per-lane offset (r, c < 8) plus an immediate.
+template <int D>
+__device__ __forceinline__ int swz_bits(int row) {
+  return D >= 64 ? (row & 7) : ((row >> 1) & 3);
+}
+
+template <int D>
+__device__ __forceinline__ uint32_t swz(int row, int chunk) {
+  return (uint32_t)(row * (D / 8) + (chunk ^ swz_bits<D>(row))) * 16u;
+}
+
+constexpr int kWarps = 8;              // warps per block, 16 query rows each
+constexpr int kMmaRows = 16 * kWarps;  // query rows per block
+
+template <int D>
+constexpr size_t mma_smem_bytes() {
+  // Q (kMmaRows x D) and two stages of K and V (kBK x D each), bf16
+  return ((size_t)kMmaRows * D + (size_t)4 * kBK * D) * 2;
+}
+
+template <int D>
+__global__ void __launch_bounds__(kWarps * 32, 1) flash_mma_kernel(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+    const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o, int S,
+    int Hq, int Hkv, int causal, int window, float scale_log2) {
+  constexpr int NT = kWarps * 32;
+  constexpr int BQ = kMmaRows;
+  constexpr int CPR = D / 8;     // 16-byte chunks per row
+  constexpr int TILE = kBK * D;  // elements of one K or V tile
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  __nv_bfloat16* sq = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* skv = sq + BQ * D;  // stage s: K at 2s*TILE, V after it
+
+  const int h = blockIdx.x % Hq;
+  const int b = blockIdx.x / Hq;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // heaviest tiles first
+  const int hk = h / (Hq / Hkv);
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+
+  const size_t q_row = (size_t)Hq * D;
+  const size_t kv_row = (size_t)Hkv * D;
+  const __nv_bfloat16* qb = q + (size_t)b * S * q_row + (size_t)h * D;
+  const __nv_bfloat16* kb = k + (size_t)b * S * kv_row + (size_t)hk * D;
+  const __nv_bfloat16* vb = v + (size_t)b * S * kv_row + (size_t)hk * D;
+  __nv_bfloat16* ob = o + (size_t)b * S * q_row + (size_t)h * D;
+
+  // keys [kv_begin, kv_end) can be live for some row of this block
+  const int q_last = min(q0 + BQ, S) - 1;
+  const int kv_end = causal ? q_last + 1 : S;
+  const int kv_begin = window > 0 ? max(0, q0 - window + 1) : 0;
+  const int t_begin = kv_begin / kBK;
+  const int t_end = (kv_end + kBK - 1) / kBK;
+
+  // copies: each thread takes chunk lc of rows lr, lr + RPP, ...; rows past
+  // S read row S - 1 with a source size of 0, which writes zeros
+  constexpr int RPP = NT / CPR;  // rows per pass
+  static_assert(NT % CPR == 0 && kBK % RPP == 0 && BQ % RPP == 0, "tiling");
+  const int lr = tid / CPR, lc = tid % CPR;
+  const uint32_t sq_u = smem_addr(sq);
+  const uint32_t skv_u = smem_addr(skv);
+#pragma unroll
+  for (int p = 0; p < BQ / RPP; ++p) {
+    const int r = lr + p * RPP;
+    cp_async16(sq_u + swz<D>(r, lc),
+               qb + (size_t)min(q0 + r, S - 1) * q_row + lc * 8, q0 + r < S);
   }
+  auto load_kv = [&](int t, int stage) {
+    const int k0 = t * kBK;
+    const uint32_t sk_u = skv_u + stage * 2 * TILE * 2;
+#pragma unroll
+    for (int p = 0; p < kBK / RPP; ++p) {
+      const int r = lr + p * RPP;
+      const size_t off = (size_t)min(k0 + r, S - 1) * kv_row + lc * 8;
+      cp_async16(sk_u + swz<D>(r, lc), kb + off, k0 + r < S);
+      cp_async16(sk_u + TILE * 2 + swz<D>(r, lc), vb + off, k0 + r < S);
+    }
+  };
+  load_kv(t_begin, 0);
+  cp_async_commit();
+
+  // this warp's rows [qw, qw + 16); thread holds rows g and g + 8 of them
+  const int qw = q0 + warp * 16;
+  const int g = lane / 4;
+  const int t4 = lane % 4;
+  float acc[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  float m0 = kMasked, m1 = kMasked, l0 = 0.f, l1 = 0.f;
+
+  // ldmatrix addresses of this lane (fragment layouts: Q as A, 16 rows x
+  // 16 d; K as B, 16 keys x 16 d; V as B^T, 16 keys x 16 d): the row's
+  // offset plus the swizzled offset of k-step (or d-pair) i % 4; step i
+  // adds 128 (i / 4) bytes, key group n adds n rows
+  const int qa_row = warp * 16 + (lane % 16);
+  const int kb_row = (lane % 8) + (lane / 16) * 8;
+  const int vb_row = (lane % 8) + ((lane / 8) % 2) * 8;
+  uint32_t qa_u[4], kb_off[4], vb_off[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    qa_u[i] = sq_u + swz<D>(qa_row, 2 * i + lane / 16);
+    kb_off[i] = swz<D>(kb_row, 2 * i + (lane / 8) % 2);
+    vb_off[i] = swz<D>(vb_row, 2 * i + lane / 16);
+  }
+  constexpr uint32_t ROW16 = 16 * CPR * 16;  // bytes of 16 rows
+
+  for (int t = t_begin; t < t_end; ++t) {
+    const int stage = (t - t_begin) & 1;
+    cp_async_wait_all();
+    __syncthreads();  // tile t landed; every warp is done with tile t - 1
+    if (t + 1 < t_end) {
+      load_kv(t + 1, stage ^ 1);
+      cp_async_commit();
+    }
+    const int k0 = t * kBK;
+    // skip a tile wholly masked for this warp's rows (exact: its weights
+    // would be 0, or 1 and then wiped by alpha = 0)
+    if (qw >= S || (causal && k0 > qw + 15) ||
+        (window > 0 && qw - (k0 + kBK - 1) >= window))
+      continue;
+    const uint32_t sk_u = skv_u + stage * 2 * TILE * 2;
+    const uint32_t sv_u = sk_u + TILE * 2;
+
+    // S = Q K^T: 16 rows x 64 keys, eight 16 x 8 accumulators
+    float s[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < D / 16; ++ks) {
+      uint32_t a[4];
+      ldsm_x4(qa_u[ks % 4] + 128 * (ks / 4), a);
+#pragma unroll
+      for (int nb = 0; nb < 4; ++nb) {
+        uint32_t kf[4];
+        ldsm_x4(sk_u + kb_off[ks % 4] + nb * ROW16 + 128 * (ks / 4), kf);
+        mma_bf16(s[2 * nb], a, kf[0], kf[1]);
+        mma_bf16(s[2 * nb + 1], a, kf[2], kf[3]);
+      }
+    }
+
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] *= scale_log2;
+    if ((causal && k0 + kBK - 1 > qw) ||
+        (window > 0 && qw + 15 - k0 >= window) || k0 + kBK > S) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qr = qw + g + (e >= 2 ? 8 : 0);
+          const int kr = k0 + 8 * j + 2 * t4 + (e & 1);
+          if (kr >= S)
+            s[j][e] = -INFINITY;  // past the sequence: never weighted
+          else if ((causal && kr > qr) || (window > 0 && qr - kr >= window))
+            s[j][e] = kMasked;
+        }
+    }
+
+    // online softmax, rows g (e = 0, 1) and g + 8 (e = 2, 3)
+    float mx0 = m0, mx1 = m1;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
+      mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
+    }
+    mx0 = fmaxf(mx0, __shfl_xor_sync(kFull, mx0, 1));
+    mx0 = fmaxf(mx0, __shfl_xor_sync(kFull, mx0, 2));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(kFull, mx1, 1));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(kFull, mx1, 2));
+    const float al0 = exp2f(m0 - mx0);
+    const float al1 = exp2f(m1 - mx1);
+    m0 = mx0;
+    m1 = mx1;
+    // P in bf16 as the A fragments of P V (16 rows x 16 keys each)
+    uint32_t pa[4][4];
+    float rs0 = 0.f, rs1 = 0.f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float p0 = exp2f(s[j][0] - mx0);
+      const float p1 = exp2f(s[j][1] - mx0);
+      const float p2 = exp2f(s[j][2] - mx1);
+      const float p3 = exp2f(s[j][3] - mx1);
+      rs0 += p0 + p1;
+      rs1 += p2 + p3;
+      pa[j / 2][(j % 2) * 2] = pack_bf16(p0, p1);
+      pa[j / 2][(j % 2) * 2 + 1] = pack_bf16(p2, p3);
+    }
+    l0 = l0 * al0 + rs0;
+    l1 = l1 * al1 + rs1;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      acc[n][0] *= al0;
+      acc[n][1] *= al0;
+      acc[n][2] *= al1;
+      acc[n][3] *= al1;
+    }
+
+    // O += P V: 16 rows x D, D / 8 accumulators of 16 x 8
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk) {
+#pragma unroll
+      for (int nd = 0; nd < D / 16; ++nd) {
+        uint32_t vf[4];
+        ldsm_x4_trans(sv_u + vb_off[nd % 4] + kk * ROW16 + 128 * (nd / 4),
+                      vf);
+        mma_bf16(acc[2 * nd], pa[kk], vf[0], vf[1]);
+        mma_bf16(acc[2 * nd + 1], pa[kk], vf[2], vf[3]);
+      }
+    }
+  }
+  cp_async_wait_all();
+  if (qw >= S) return;
+
+  l0 += __shfl_xor_sync(kFull, l0, 1);
+  l0 += __shfl_xor_sync(kFull, l0, 2);
+  l1 += __shfl_xor_sync(kFull, l1, 1);
+  l1 += __shfl_xor_sync(kFull, l1, 2);
+  if (l0 == 0.f) l0 = 1.f;
+  if (l1 == 0.f) l1 = 1.f;
+  // stage O / l in this warp's own rows of the Q tile (only this warp read
+  // them), then store 16-byte chunks, neighbouring lanes on one row
+  unsigned char* so = smem_raw;
+  const int r0 = warp * 16 + g;
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+    *reinterpret_cast<uint32_t*>(so + swz<D>(r0, n) + 4 * t4) =
+        pack_bf16(acc[n][0] / l0, acc[n][1] / l0);
+    *reinterpret_cast<uint32_t*>(so + swz<D>(r0 + 8, n) + 4 * t4) =
+        pack_bf16(acc[n][2] / l1, acc[n][3] / l1);
+  }
+  __syncwarp();
+  for (int i = lane; i < 16 * CPR; i += 32) {
+    const int r = i / CPR, c = i % CPR;
+    if (qw + r < S)
+      *reinterpret_cast<uint4*>(ob + (size_t)(qw + r) * q_row + c * 8) =
+          *reinterpret_cast<const uint4*>(so + swz<D>(warp * 16 + r, c));
+  }
+}
+
+template <int D>
+int launch_mma(const void* q, const void* k, const void* v, void* o, int B,
+               int S, int Hq, int Hkv, int causal, int window, float scale,
+               void* stream) {
+  constexpr size_t smem = mma_smem_bytes<D>();
+  cudaError_t e = cudaFuncSetAttribute(
+      flash_mma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid(B * Hq, (S + kMmaRows - 1) / kMmaRows);
+  flash_mma_kernel<D><<<grid, kWarps * 32, smem, (cudaStream_t)stream>>>(
+      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
+      (const __nv_bfloat16*)v, (__nv_bfloat16*)o, S, Hq, Hkv, causal, window,
+      scale * 1.4426950408889634f);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -282,20 +597,50 @@ const char* error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
-// q, o (B, S, Hq, D); k, v (B, S, Hkv, D); contiguous, on the device, all of
-// one type.  D in {32, 64, 128, 256}; Hq % Hkv == 0; window <= 0 means none.
+// q, o (B, S, Hq, D); k, v (B, S, Hkv, D); contiguous, on the device, all
+// float32.  D in {32, 64, 128, 256}; Hq % Hkv == 0; window <= 0 means none.
 int flash_attention_f32(const void* q, const void* k, const void* v, void* o,
                         int B, int S, int Hq, int Hkv, int D, int causal,
                         int window, float scale, void* stream) {
-  return dispatch<float>(q, k, v, o, B, S, Hq, Hkv, D, causal, window, scale,
-                         stream);
+  switch (D) {
+    case 32:
+      return launch_f32<32>(q, k, v, o, B, S, Hq, Hkv, causal, window, scale,
+                            stream);
+    case 64:
+      return launch_f32<64>(q, k, v, o, B, S, Hq, Hkv, causal, window, scale,
+                            stream);
+    case 128:
+      return launch_f32<128>(q, k, v, o, B, S, Hq, Hkv, causal, window, scale,
+                             stream);
+    case 256:
+      return launch_f32<256>(q, k, v, o, B, S, Hq, Hkv, causal, window, scale,
+                             stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
-int flash_attention_bf16(const void* q, const void* k, const void* v, void* o,
-                         int B, int S, int Hq, int Hkv, int D, int causal,
-                         int window, float scale, void* stream) {
-  return dispatch<__nv_bfloat16>(q, k, v, o, B, S, Hq, Hkv, D, causal, window,
-                                 scale, stream);
+// The same contract in bfloat16, every pointer 16-byte aligned.
+int flash_attention_mma_bf16(const void* q, const void* k, const void* v,
+                             void* o, int B, int S, int Hq, int Hkv, int D,
+                             int causal, int window, float scale,
+                             void* stream) {
+  switch (D) {
+    case 32:
+      return launch_mma<32>(q, k, v, o, B, S, Hq, Hkv, causal, window, scale,
+                            stream);
+    case 64:
+      return launch_mma<64>(q, k, v, o, B, S, Hq, Hkv, causal, window, scale,
+                            stream);
+    case 128:
+      return launch_mma<128>(q, k, v, o, B, S, Hq, Hkv, causal, window, scale,
+                             stream);
+    case 256:
+      return launch_mma<256>(q, k, v, o, B, S, Hq, Hkv, causal, window, scale,
+                             stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // extern "C"

@@ -4,12 +4,16 @@
         → (B, S, Hq, D) in q's dtype
 
 For CUDA tensors it launches ``csrc/flash_attention.cu``, which reads KV
-head h // (Hq/Hkv) for Q head h (no repeated KV copy); for tensors on the
-CPU it runs the plain version, ``ref.mha_ref``.  A failed build or launch
-raises.  The shape contract is the reference's (``flash_attention``
-asserts ``S % min(128, S) == 0``).  ``launches`` counts kernel launches,
-and ``"plain_on_cuda"`` counts calls of the plain version with a CUDA
-tensor (the comparisons in ``chip_smoke.py``; the path never makes one).
+head h // (Hq/Hkv) for Q head h (no repeated KV copy), by one of two routes:
+bfloat16 takes the tensor-core kernel (``mma.sync``, P rounded to bf16;
+``ref.mha_tiled`` is its tile-wise plain version), float32 the FMA kernel
+(exact in float32).  For tensors on the CPU it runs the plain version,
+``ref.mha_ref``.  A failed build or launch raises.  The shape contract is
+the reference's (``flash_attention`` asserts ``S % min(128, S) == 0``).
+``launches`` counts kernel launches: the total under ``"flash_attention"``
+and each route under its own key (``ROUTES``); ``"plain_on_cuda"`` counts
+calls of the plain version with a CUDA tensor (the comparisons in
+``chip_smoke.py``; the path never makes one).
 """
 
 from __future__ import annotations
@@ -24,13 +28,15 @@ import torch
 
 from repro_torch.kernels import build as _build
 from repro_torch.kernels.flash_attention.ref import (
-    attention_ref, band_mask, mha_ref,
+    attention_ref, band_mask, mha_ref, mha_tiled,
 )
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
-KERNELS = ("flash_attention",)
-HEAD_DIMS = (32, 64, 128, 256)      # the kernel's instantiations
-_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
+# route counter and C entry point of each input dtype
+ROUTES = {torch.bfloat16: ("flash_attention_mma", "flash_attention_mma_bf16"),
+          torch.float32: ("flash_attention_f32", "flash_attention_f32")}
+KERNELS = tuple(counter for counter, _ in ROUTES.values())
+HEAD_DIMS = (32, 64, 128, 256)      # the kernels' instantiations
 
 launches: collections.Counter = collections.Counter()
 
@@ -44,8 +50,8 @@ def reset_launches() -> None:
 @functools.cache
 def _lib() -> ctypes.CDLL:
     sig = [_P] * 4 + [_I] * 7 + [ctypes.c_float, _P]
-    return _build.load_bound(
-        SOURCE, {f"flash_attention_{s}": sig for s in _SUFFIX.values()})
+    return _build.load_bound(SOURCE, {entry: sig for _, entry in
+                                      ROUTES.values()})
 
 
 def build() -> None:
@@ -71,29 +77,35 @@ def _check_shapes(q, k, v, window) -> None:
 
 
 def _launch(q, k, v, causal: bool, window: Optional[int]) -> torch.Tensor:
+    """Launch the route of q's dtype."""
     name = "flash_attention"
     if not q.is_cuda:
         raise ValueError(f"{name}: expected CUDA tensors, got {q.device}")
     _build.check_cuda(name, q, k, v)
-    if q.dtype not in _SUFFIX or k.dtype != q.dtype or v.dtype != q.dtype:
+    if q.dtype not in ROUTES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"{name}: q, k, v must share float32 or bfloat16, got "
                         f"{q.dtype}, {k.dtype}, {v.dtype}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError(f"{name}: inputs must be contiguous")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError(f"{name}: q, k, v must start on a 16-byte boundary "
+                         f"(the bf16 route copies 16 bytes at a time)")
     b, s, hq, d = q.shape
     if d not in HEAD_DIMS:
         raise ValueError(f"{name}: head dim {d} not in {HEAD_DIMS}")
-    if q.numel() >= 2**31 or b > 65535 or hq > 65535:
+    if q.numel() >= 2**31 or b > 65535 or hq > 65535 or s > 65535 * 64:
         raise ValueError(f"{name}: q {tuple(q.shape)} exceeds the grid")
+    counter, entry = ROUTES[q.dtype]
     o = torch.empty_like(q)
     lib = _lib()
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    code = getattr(lib, f"flash_attention_{_SUFFIX[q.dtype]}")(
+    code = getattr(lib, entry)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, s, hq,
         k.shape[2], d, int(causal), 0 if window is None else int(window),
         d ** -0.5, stream)
     _build.raise_on(lib, code, name)
     launches[name] += 1
+    launches[counter] += 1
     return o
 
 
@@ -118,6 +130,7 @@ def mha_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 __all__ = [
-    "HEAD_DIMS", "KERNELS", "attention_ref", "band_mask", "build",
-    "launches", "mha_flash", "mha_flash_plain", "mha_ref", "reset_launches",
+    "HEAD_DIMS", "KERNELS", "ROUTES", "attention_ref",
+    "band_mask", "build", "launches", "mha_flash", "mha_flash_plain",
+    "mha_ref", "mha_tiled", "reset_launches",
 ]

@@ -11,6 +11,18 @@ window exist.  Limits are the reference's: 2e-5 absolute in float32 (the
 outputs are O(1) and both sides accumulate in float32, so only summation
 order differs) and 2e-2 in bfloat16 (one output rounding of a unit-scale
 value is up to 2^-8 · 4).
+
+The tensor-core route's tile-wise plain version (``ref.mha_tiled``: the
+kernel's blocks, warp slices, skipped tiles, -1e30 masking, base-2 online
+softmax, P rounded to the input dtype) is held at every shape of
+``cases.REFERENCE_SHAPES`` and ``EXTRA_SHAPES`` against the JAX
+``mha_flash`` at the limits above, and against ``mha_ref`` on the same
+(rounded) inputs before the output rounding: 2e-5 in float32, and in bf16
+2^-8 · max|v| + 2e-5, since rounding p to bf16 moves each weight by at
+most 2^-8 of itself (8 significant bits), so the weighted mean of v moves
+by at most 2^-8 · max|v|.  ``cases.tiled_gap``, the card's per-element
+check of the kernel against ``mha_tiled``, passes the tiled output rounded
+once to bf16 and fails one that is off by a few percent on some rows.
 """
 
 import jax.numpy as jnp
@@ -20,7 +32,8 @@ import torch
 
 from repro.kernels.flash_attention.ops import mha_flash as jax_mha_flash
 from repro.kernels.flash_attention.ref import attention_ref as jax_attention_ref
-from repro_torch.kernels.flash_attention import ops
+from repro_torch.kernels import build
+from repro_torch.kernels.flash_attention import cases, ops
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
 from _torch_port import to_np
@@ -100,3 +113,58 @@ def test_cpu_tensors_take_the_plain_version_uncounted():
     out = ops.mha_flash(q, k, v, window=16)
     assert torch.equal(out, ops.mha_ref(q, k, v, window=16))
     assert sum(ops.launches.values()) == 0
+
+
+TILED_SHAPES = cases.REFERENCE_SHAPES + cases.EXTRA_SHAPES
+
+
+@pytest.mark.parametrize("shape", TILED_SHAPES, ids=str)
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_tiled_route_matches_jax_and_mha_ref(shape, dtype):
+    b, s, hq, hkv, d, causal, win = shape
+    jdt, tdt, tol = DTYPES[dtype]
+    q, k, v = _inputs(b, s, hq, hkv, d, seed=2)
+    tq, tk, tv = (torch.from_numpy(a).to(tdt) for a in (q, k, v))
+    got = ops.mha_tiled(tq, tk, tv, causal=causal, window=win)
+    assert got.dtype == torch.float32 and got.shape == (b, s, hq, d)
+    ref = jax_mha_flash(*(jnp.asarray(a, jdt) for a in (q, k, v)),
+                        causal=causal, window=win)
+    np.testing.assert_allclose(to_np(got.to(tdt)),
+                               np.asarray(ref, np.float32), atol=tol)
+    exact = ops.mha_ref(tq.float(), tk.float(), tv.float(), causal=causal,
+                        window=win)
+    p_tol = 2e-5 if tdt == torch.float32 else (
+        2 ** -8 * float(tv.float().abs().max()) + 2e-5)
+    np.testing.assert_allclose(to_np(got), to_np(exact), atol=p_tol)
+
+
+@pytest.mark.parametrize("shape", [(1, 512, 2, 1, 128, True, 128),
+                                   (1, 640, 10, 10, 256, True, 300),
+                                   (1, 100, 2, 1, 64, True, None)], ids=str)
+def test_tiled_gap_takes_one_rounding_and_rejects_a_wrong_kernel(shape):
+    b, s, hq, hkv, d, causal, win = shape
+    q, k, v = (torch.from_numpy(a).bfloat16()
+               for a in _inputs(b, s, hq, hkv, d, seed=3))
+    tiled = ops.mha_tiled(q, k, v, causal=causal, window=win)
+    assert cases.tiled_gap(tiled.bfloat16(), tiled) <= 0.0
+    for rows in (slice(None), slice(s // 2, None)):   # all rows, later rows
+        wrong = tiled.clone()
+        wrong[:, rows] *= 1.03
+        assert cases.tiled_gap(wrong.bfloat16(), tiled) > cases.TILED_ABS
+
+
+def test_parse_ptxas_reads_registers_and_spills():
+    log = """ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_Z16flash_mma_kernelILi256EEvPKf' for 'sm_90a'
+ptxas info    : Function properties for _Z16flash_mma_kernelILi256EEvPKf
+    256 bytes stack frame, 260 bytes spill stores, 272 bytes spill loads
+ptxas info    : Used 255 registers, used 1 barriers, 256 bytes cumulative stack size
+ptxas info    : Compile time = 543.998 ms
+ptxas info    : Compiling entry function '_Z16flash_mma_kernelILi32EEvPKf' for 'sm_90a'
+ptxas info    : Function properties for _Z16flash_mma_kernelILi32EEvPKf
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 116 registers, used 1 barriers
+"""
+    assert build.parse_ptxas(log) == {
+        "_Z16flash_mma_kernelILi256EEvPKf": (255, 260, 272),
+        "_Z16flash_mma_kernelILi32EEvPKf": (116, 0, 0)}

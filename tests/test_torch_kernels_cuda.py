@@ -13,7 +13,12 @@
   with ``chip_smoke.py``): the hybrid path's shape, the reference's sweep,
   causal without window, non-causal, S in {64, 100, 128}, every head dim,
   Hq/Hkv in {1, 2, 10}, float32 (max|Δ| <= 2e-4·max|ref|) and bfloat16
-  (max|Δ| <= 2e-2 on unit-normal inputs, the reference's own limit).
+  (max|Δ| <= 2e-2 on unit-normal inputs, the reference's own limit); the
+  route counter that moved (mma for bf16, FMA for float32); in bf16 also
+  per element against the route's tile-wise plain version ``mha_tiled``
+  (the same roundings of P): |kernel - tiled| <= 2^-8·|tiled| +
+  ``cases.TILED_ABS``, half an output ulp plus the float32 summation
+  order (``cases.tiled_gap``).
 
 Needs an NVIDIA GPU: the kernels have no CPU mode, so every test here skips
 without one.  Imports no JAX, so it runs on the card's machine:
@@ -136,15 +141,25 @@ def test_qr_blocked_on_card(cuda_device, m, n):
 def test_flash_attention_matches_plain_on_card(cuda_device, shape, dtype):
     gen = torch.Generator(device=cuda_device).manual_seed(3)
     case = flash_cases.flash_case(shape, dtype, gen, cuda_device)
-    before = flash_ops.launches["flash_attention"]
-    got, ref = case.kernel(), case.plain()
+    before = dict(flash_ops.launches)
+    got = case.kernel()
+    moved = {k: n - before.get(k, 0) for k, n in flash_ops.launches.items()
+             if n != before.get(k, 0)}
+    ref = case.plain()
     torch.cuda.synchronize()
     assert got.dtype == dtype and got.shape == ref.shape
     err = float((got.float() - ref.float()).abs().max())
     tol = (2e-4 * float(ref.float().abs().max()) if dtype == torch.float32
            else 2e-2)
     assert err <= tol, (shape, dtype, err)
-    assert flash_ops.launches["flash_attention"] == before + 1
+    route = flash_ops.ROUTES[dtype][0]
+    assert moved == {"flash_attention": 1, route: 1}, moved
+    if dtype == torch.bfloat16:
+        q, k, v = case.inputs
+        tiled = flash_ops.mha_tiled(q, k, v, causal=shape[5],
+                                    window=shape[6])
+        gap = flash_cases.tiled_gap(got, tiled)
+        assert gap <= flash_cases.TILED_ABS, (shape, gap)
 
 
 @pytest.mark.cuda
@@ -161,3 +176,8 @@ def test_flash_attention_checks(cuda_device):
     with pytest.raises(ValueError, match="contiguous"):
         flash_ops.mha_flash(q, q.transpose(1, 2).contiguous().transpose(1, 2),
                             q)
+    for dtype in flash_cases.DTYPES:    # contiguous, one element off 16 bytes
+        buf = torch.randn(128 * 2 * 64 + 1, device=cuda_device).to(dtype)
+        off = buf[1:].view(1, 128, 2, 64)
+        with pytest.raises(ValueError, match="16-byte"):
+            flash_ops.mha_flash(off, off, off)
