@@ -83,9 +83,30 @@
       route, its plain version and one ``scaled_dot_product_attention``
       call in the route's dtype, each route against its own bound (bf16
       tensor-core rate for mma, float32 FMA rate for f32).
-6. Prints one ``{"kernels": [...]}`` JSON line (the twelve other ported
-   kernels and one entry per flash route), the card line again, and as
-   the last line ``{"ok": true, "device": {...}}``.
+6. MoE phase (``models/mlp.moe_apply``, the expert-batched routes of
+   ``kernels/tt_contract``):
+   a. the main path ``serve --arch olmoe-1b-7b`` at full width and depth
+      (16 layers, d_model 2048, 16x128 heads with qk-norm, 64 experts top-8
+      of d_ff 1024, vocab 50,304, untied), random weights from seed 0 with
+      the spectral decay, eps 0.2, B = 4, prompt 16, gen 16: ``--weights
+      tt``, then ``tt-int8`` on the same compression: compression seconds,
+      peak device memory, bytes, the banks' ranks, decode tok/s;
+   b. every expert bank call one batched launch: tt_contract_2_batched
+      (tt) and tt_contract_2q_batched (int8) exactly 3 banks x 16 layers x
+      the TT decode steps, no plain chain, no plain call on the card;
+   c. float32: each MoE call of the reconstruct-then-serve teacher-forced
+      run replayed with the TT-native banks and the dense banks (same input,
+      same routing), per layer within F32_TOL of scale; the whole model's
+      teacher-forced logits printed with the routing flips between the two
+      and their margins;
+   d. each batched route against its plain version: depth 2 at the path's
+      bank shapes, depth 3 at synthetic shapes, 64 experts of 1, 4 and 64
+      tokens, float32, bfloat16 and int8 tails (TOL of max|ref|); times of
+      kernel, plain version and one ``torch.einsum`` at 1 token per expert.
+7. Prints one ``{"kernels": [...]}`` JSON line (the twelve other ported
+   kernels, one entry per flash route and one per batched chain route),
+   the card line again, and as the last line ``{"ok": true, "device":
+   {...}}``.
 
 Exits non-zero without a CUDA card, and on any failed phase.
 """
@@ -188,6 +209,7 @@ def _f32_model(model, device):
     from repro_torch.models.registry import build
     cfg32 = dataclasses.replace(model.cfg, dtype="float32")
     init_cache = {"dense": transformer.init_cache,
+                  "moe": transformer.init_cache,
                   "hybrid": rglru.init_cache}[cfg32.family]
     return dataclasses.replace(
         build(cfg32, device=device),
@@ -362,10 +384,12 @@ def run_main_path(ops, serve_mod, weights: str) -> dict:
 # Kernel phase
 # ---------------------------------------------------------------------------
 
-def chain_cost(kind, shape, b, tail_itemsize):
+def chain_cost(kind, shape, b, tail_itemsize, experts: int = 1):
     """(bytes, flops) the chain must move/do: each input read once (x, the
     absorbed first core in f32, the tail cores in storage type, the scale),
-    the output written once; two FLOPs per multiply-add of the chain."""
+    the output written once; two FLOPs per multiply-add of the chain.  With
+    ``experts`` E, x, the first core and y are per expert (E chains of
+    ``b`` tokens each) and the tail is shared."""
     if kind == 2:
         n1, r1, n2 = shape
         n_in, n_out = n1, n2
@@ -380,14 +404,17 @@ def chain_cost(kind, shape, b, tail_itemsize):
             n_in, n_out = n1 * n2, n3
             macs = n1 * n2 * r1 + n2 * r1 * r2 + r2 * n3
         tail = r1 * n2 * r2 + r2 * n3
-    nbytes = 4 * (b * n_in + n1 * r1 + b * n_out) + tail * tail_itemsize + 4
-    return nbytes, 2 * b * macs
+    nbytes = (4 * experts * (b * n_in + n1 * r1 + b * n_out)
+              + tail * tail_itemsize + 4)
+    return nbytes, 2 * experts * b * macs
 
 
 def chain_shapes(info):
     """{kernel kind: {shape: calls per layer}} from the main path's chains."""
     shapes = {2: {}, 3: {}}
-    for split, cores in info["chains"].values():
+    for split, cores, experts in info["chains"].values():
+        if experts:
+            continue            # expert banks: the batched phase
         if len(cores) == 2:
             (_, n1, r1), (_, n2, _) = cores
             key = (n1, r1, n2)
@@ -488,16 +515,18 @@ def eps_gate(params, payload, what: str) -> float:
 
 class PhaseTimers:
     """Host seconds of each compression phase, synchronized at the phase
-    boundaries: the HBD (unblocked loop, or blocked QR + HBD of R), the
+    boundaries: the spectral decay of the synthetic weights (where the run
+    makes them), the HBD (unblocked loop, or blocked QR + HBD of R), the
     sort, the truncation, the whole SVD (phase 2 = SVD - HBD - sort), by
     wrapping the functions the compression path calls for one run."""
 
     def __init__(self):
         import importlib
-        blocked, svd, truncation, tt = (
+        blocked, svd, truncation, tt, tt_linear = (
             importlib.import_module(f"repro_torch.core.{m}")
-            for m in ("blocked", "svd", "truncation", "tt"))
-        self.sec = {"hbd": 0.0, "sort": 0.0, "truncate": 0.0, "svd": 0.0}
+            for m in ("blocked", "svd", "truncation", "tt", "tt_linear"))
+        self.sec = {"hbd": 0.0, "sort": 0.0, "truncate": 0.0, "svd": 0.0,
+                    "decay": 0.0}
         self.targets = [
             (svd, "householder_bidiagonalize", "hbd"),
             (svd, "householder_bidiagonalize_batched", "hbd"),
@@ -506,7 +535,8 @@ class PhaseTimers:
             (svd, "sorting_basis", "sort"),
             (truncation, "truncation_rank", "truncate"),
             (truncation, "truncate_masked", "truncate"),
-            (tt, "_svd_fn", "svd"), (tt, "_svd_batched", "svd")]
+            (tt, "_svd_fn", "svd"), (tt, "_svd_batched", "svd"),
+            (tt_linear, "spectral_decay_pytree", "decay")]
         self.saved = []
 
     def _wrap(self, fn, key):
@@ -532,10 +562,10 @@ class PhaseTimers:
 
     def breakdown(self, total: float) -> dict:
         s = self.sec
-        return {"total_s": total, "hbd_s": s["hbd"],
+        return {"total_s": total, "decay_s": s["decay"], "hbd_s": s["hbd"],
                 "diag_s": s["svd"] - s["hbd"] - s["sort"], "sort_s": s["sort"],
                 "truncate_s": s["truncate"],
-                "rest_s": total - s["svd"] - s["truncate"]}
+                "rest_s": total - s["svd"] - s["truncate"] - s["decay"]}
 
 
 def compress_timed(params, policy, plan=None, timers=False):
@@ -1079,6 +1109,279 @@ def flash_phase() -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# MoE phase: full-width olmoe-1b-7b, expert banks on the batched chain kernel
+# ---------------------------------------------------------------------------
+
+MOE_ARCH = "olmoe-1b-7b"
+MOE_SERVE_ARGS = ["--arch", MOE_ARCH, "--batch", "4", "--prompt-len", "16",
+                  "--gen", "16", "--seed", "0", "--tt-eps", "0.2"]
+MOE_BANKS = ("layers.moe.w_gate", "layers.moe.w_up", "layers.moe.w_down")
+# the tt_contract_batched dispatch the batched routes replace
+BATCHED_TPU = "src/repro/kernels/tt_contract/ops.py:205"
+
+
+class _Recorder:
+    """Wrap ``module.name`` for a block: every call's result of ``keep``
+    (called with the call's arguments and result) goes to ``self.calls``."""
+
+    def __init__(self, module, name, keep):
+        self.module, self.name, self.keep, self.calls = module, name, keep, []
+
+    def __enter__(self):
+        fn = self.orig = getattr(self.module, self.name)
+
+        def wrapped(*a, **k):
+            out = fn(*a, **k)
+            self.calls.append(self.keep(a, out))
+            return out
+        setattr(self.module, self.name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.orig)
+
+
+def moe_serve(serve_mod) -> dict:
+    """a-b: ``serve --arch olmoe-1b-7b`` at full width and depth, ``--weights
+    tt``, then ``tt-int8`` on the same compression; every expert bank call
+    must be one batched chain launch."""
+    res, compressed = {}, None
+    for weights in ("tt", "tt-int8"):
+        args = serve_mod.parse_args(MOE_SERVE_ARGS + ["--weights", weights])
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        with PhaseTimers() as timers:      # compresses in the tt run only
+            out, wall, counts = _counted(
+                lambda: serve_mod.serve(args, compressed=compressed))
+        peak = torch.cuda.max_memory_allocated()
+        info, ver, gen = out["info"], out["verify"], out["generated"]
+        cfg = out["model"].cfg
+        compressed = info["compressed"]
+        check(gen.shape == (4, 16) and gen.min() >= 0
+              and gen.max() < cfg.vocab_size,
+              f"moe {weights}: generated tokens {gen.shape} out of range")
+        check(bool(torch.isfinite(out["run"]["prompt_logits"]).all()),
+              f"moe {weights}: non-finite logits")
+        check(counts.get("plain_chains", 0) == 0,
+              f"moe {weights}: {counts.get('plain_chains')} chains took the "
+              f"plain path")
+        quant = weights != "tt"
+        # TT decode steps: fused prefill + decode (16 + 15), plus the int8
+        # verify's teacher-forced pass over the prompt (15)
+        steps = 31 + (15 if quant else 0)
+        key = "tt_contract_2q_batched" if quant else "tt_contract_2_batched"
+        want = len(MOE_BANKS) * cfg.num_layers * steps
+        check(counts.get(key, 0) == want,
+              f"moe {weights}: {counts.get(key, 0)} {key} launches, want "
+              f"{want} (3 banks x {cfg.num_layers} layers x {steps} steps)")
+        attn = "tt_contract_3q" if quant else "tt_contract_3"
+        check(counts.get(attn, 0) > 0,
+              f"moe {weights}: attention chains never launched {attn}")
+        if not quant:
+            for k in ("bitonic_sort_desc", "frob_truncate"):
+                check(counts.get(k, 0) > 0,
+                      f"moe compression: kernel {k} never launched")
+        check_no_plain(counts, f"moe {weights}")
+        banks = {p: list(info["ranks"][p]) for p in MOE_BANKS}
+        print(f"[chip_smoke] moe {weights}: compression "
+              f"{info['compress_s']:.3f}s (incl. the spectral decay"
+              f"{', reused from the tt run' if quant else ''}), peak device "
+              f"memory {peak:,} B ({base:,} B allocated before the run); "
+              f"decode {out['tok_per_s']:.2f} tok/s; wall "
+              f"{wall:.1f}s; bank ranks {json.dumps(banks)}; launches "
+              f"{counts}")
+        print(f"[chip_smoke] moe {weights} bytes: {info['line']}")
+        print(f"[chip_smoke] moe {weights} reference-oracle gate (reported): "
+              f"max|d|/scale {ver['max_diff'] / ver['scale']:.4f} (bound "
+              f"0.05)" + (f", tie-tolerant agreement {ver['tie_agree']:.4f}"
+                          f" (gate 0.99)" if quant else ""))
+        if not quant:
+            res["compression"] = timers.breakdown(info["compress_s"])
+            print(f"[chip_smoke] moe compression, where the time goes: "
+                  f"{json.dumps(res['compression'])}")
+            res["decode_profile"] = moe_decode_profile(out)
+        res[weights] = {
+            "counts": counts, "steps": steps, "wall_s": wall,
+            "peak_bytes": peak, "base_bytes": base,
+            "tok_per_s": out["tok_per_s"],
+            "compress_s": info["compress_s"], "bank_ranks": banks,
+            "ranks": {k: list(v) for k, v in info["ranks"].items()},
+            "dense_bytes": info["dense_bytes"], "tt_bytes": info["tt_bytes"],
+            "ttq_bytes": info.get("ttq_bytes"),
+            "absorbed_bytes": info["absorbed_bytes"], "verify": ver}
+        res["chains"] = info["chains"]
+        res["out"] = out
+    return res
+
+
+def moe_decode_profile(out, steps: int = 3) -> dict:
+    """Host wall and device busy time of ``steps`` fused greedy decode
+    steps of the served TT params (``torch.profiler``), with the kernels
+    that take the most device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import common
+    model = out["model"]
+    b, s = out["prompts"].shape
+    toks = torch.zeros((b, 2 * s), dtype=torch.int64, device=DEVICE)
+    toks[:, :s] = torch.as_tensor(out["prompts"], device=DEVICE)
+    state = common.gen_init(model.init_cache(b, 2 * s), toks, s, 2 * s,
+                            model.cfg.vocab_size)
+    with torch.inference_mode():
+        for _ in range(s):                       # through the prompt
+            state = common.gen_step(model.decode_step, out["params"], state)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(steps):
+                state = common.gen_step(model.decode_step, out["params"],
+                                        state)
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kern = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kern) / 1e3
+    top = sorted(kern, key=lambda e: -e.self_device_time_total)[:8]
+    res = {"steps": steps, "wall_ms": wall * 1e3, "device_busy_ms": busy,
+           "top": [[e.key[:60], e.count, e.self_device_time_total / 1e3]
+                   for e in top]}
+    print(f"[chip_smoke] moe decode profile (tt): {steps} fused steps, host "
+          f"wall {wall * 1e3:.1f} ms, device busy {busy:.1f} ms; top "
+          f"kernels [name, calls, ms] {json.dumps(res['top'])}")
+    return res
+
+
+def moe_f32_gates(serve_mod, out) -> dict:
+    """c: float32 weights and activations.  Every MoE call of the
+    reconstruct-then-serve teacher-forced run is replayed with the TT-native
+    banks (batched chain kernels) and with the reconstructed dense banks:
+    the same input, so the same routing; gated per layer at F32_TOL of the
+    dense output's scale.  The whole-model teacher-forced logits of both
+    are printed with the routing flips between them and their margins."""
+    from repro_torch.models import common, mlp
+    model = out["model"]
+    m32 = _f32_model(model, DEVICE)
+    cfg32, layers, k = m32.cfg, model.cfg.num_layers, model.cfg.moe.num_experts_per_tok
+    tt32, rx32 = f32_params(out["payload"], model.cfg.family)
+    prompts = torch.as_tensor(out["prompts"], dtype=torch.int64,
+                              device=DEVICE)
+    with _Recorder(mlp, "moe_apply", lambda a, _: a[0].clone()) as xs, \
+            _Recorder(mlp, "_top_k", lambda a, r: (a[0].clone(), r[1])) as rx_r:
+        tf_rx = serve_mod.teacher_forced_logits(m32, rx32, prompts)
+    reset_counts()
+    with _Recorder(mlp, "_top_k", lambda a, r: (a[0].clone(), r[1])) as tt_r:
+        tf_tt = serve_mod.teacher_forced_logits(m32, tt32, prompts)
+    whole_counts = read_counts()
+    d, scale, agree = common.logit_parity(torch.from_numpy(tf_tt),
+                                          torch.from_numpy(tf_rx))
+    flips = []
+    for n, ((p_rx, e_rx), (_, e_tt)) in enumerate(zip(rx_r.calls,
+                                                      tt_r.calls)):
+        srt = p_rx.sort(dim=-1, descending=True).values
+        for t in range(e_rx.shape[0]):
+            if set(e_rx[t].tolist()) != set(e_tt[t].tolist()):
+                flips.append({"layer": n % layers, "position": n // layers,
+                              "token": t, "margin": float(
+                                  srt[t, k - 1] - srt[t, k])})
+    print(f"[chip_smoke] moe f32 whole model, teacher-forced (reported): "
+          f"TT-native vs reconstruct max|d|/scale {d / scale:.3e}, argmax "
+          f"agreement {agree:.2%}; routing flips {len(flips)} of "
+          f"{len(rx_r.calls) * prompts.shape[0]} token-layer routings "
+          f"{json.dumps(flips[:10])}; launches {whole_counts}")
+
+    worst, per_layer = 0.0, []
+    reset_counts()
+    for layer in range(layers):
+        p_tt = common.layer_at(tt32.layers, layer).moe
+        p_rx = common.layer_at(rx32.layers, layer).moe
+        dl, sl = 0.0, 0.0
+        for x in xs.calls[layer::layers]:
+            got = mlp.moe_apply(x, p_tt, cfg32)
+            ref = mlp.moe_apply(x, p_rx, cfg32)
+            dd, ss = _gap(got, ref)
+            dl, sl = max(dl, dd), max(sl, ss)
+        check(dl <= F32_TOL * sl,
+              f"moe f32 layer {layer}: TT-native vs dense banks max|d| "
+              f"{dl:.3e} over {F32_TOL} * scale {sl:.3e}")
+        per_layer.append(dl / sl)
+        worst = max(worst, dl / sl)
+    counts = read_counts()
+    reset_counts()
+    want = len(MOE_BANKS) * len(xs.calls)
+    check(counts.get("tt_contract_2_batched", 0) == want
+          and counts.get("plain_chains", 0) == 0,
+          f"moe f32 gate: {counts} (want {want} batched launches)")
+    check_no_plain(counts, "moe f32 gate")
+    print(f"[chip_smoke] moe f32 gate: {len(xs.calls)} MoE calls replayed "
+          f"with TT-native and dense banks, same routing: worst per-layer "
+          f"max|d|/scale {worst:.3e} (gate {F32_TOL}); per layer "
+          f"{json.dumps([float(f'{v:.3e}') for v in per_layer])}")
+    return {"worst": worst, "per_layer": per_layer,
+            "whole_model": d / scale, "whole_agree": agree,
+            "flips": len(flips), "flip_margins": [f["margin"] for f in flips],
+            "routings": len(rx_r.calls) * prompts.shape[0]}
+
+
+def moe_kernel_phase(ops, cases, chains) -> dict:
+    """d: each batched route against its plain version on the card: the
+    depth-2 routes at the main path's bank shapes, the depth-3 routes at
+    the synthetic and ragged shapes of ``cases.BATCHED_SHAPES``, the (E, C)
+    of ``cases.BATCHED_EC`` (64 experts of 1, 4 or 64 tokens, 3 of 9),
+    float32, bfloat16 and int8 tails; times (tails as served) at C = 1, the
+    decode shape: one layer's bank calls for depth 2, one call per shape
+    for depth 3."""
+    gen = torch.Generator(device=DEVICE).manual_seed(3)
+    shapes = {2: {}, 3: {s: 1 for s in cases.BATCHED_SHAPES[3]}}
+    for path in MOE_BANKS:
+        split, cores, experts = chains[path]
+        (_, n1, r1), (_, n2, _) = cores
+        check(len(cores) == 2 and split == 1 and experts == 64,
+              f"moe: {path} is not a depth-2, split-1 bank of 64 experts: "
+              f"{chains[path]}")
+        shapes[2][(n1, r1, n2)] = shapes[2].get((n1, r1, n2), 0) + 1
+    rec = {k: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
+               "bound_ms": 0.0, "library_ms": 0.0, "bytes": 0, "flops": 0}
+           for k in ops.BATCHED}
+    for kind, per_layer in shapes.items():
+        for shape, calls in per_layer.items():
+            for e, c in cases.BATCHED_EC:
+                for dtype in cases.TAIL_DTYPES:
+                    name, kern, plain, library = cases.batched_case(
+                        kind, shape, e, c, dtype, gen, DEVICE)
+                    y, ref = kern(), plain()
+                    torch.cuda.synchronize()
+                    err, scale = _gap(y, ref)
+                    ok = err <= TOL * scale
+                    r = rec[name]
+                    r["max_abs_err"] = max(r["max_abs_err"], err)
+                    check(ok, f"{name} {dtype} {shape} E={e} C={c} disagrees "
+                              f"with its plain version")
+                    line = (f"[kernel] {name} {str(dtype)[6:]} shape={shape} "
+                            f"E={e} C={c}: max|d| {err:.3e} (ref max "
+                            f"{scale:.3e}) {'ok' if ok else 'FAIL'}")
+                    if dtype not in SERVED_TAIL:
+                        print(line)
+                        continue
+                    ms, p_ms, l_ms = (time_ms(f) for f in (kern, plain,
+                                                            library))
+                    nbytes, flops = chain_cost(kind, shape, c, dtype.itemsize,
+                                               experts=e)
+                    bound = max(nbytes / HBM_BYTES_PER_S,
+                                flops / F32_FLOPS) * 1e3
+                    print(f"{line}; kernel {ms:.4f} ms, plain {p_ms:.4f} ms, "
+                          f"einsum {l_ms:.4f} ms, bound {bound:.5f} ms")
+                    if c == 1:
+                        r["ms"] += calls * ms
+                        r["plain_ms"] += calls * p_ms
+                        r["library_ms"] += calls * l_ms
+                        r["bound_ms"] += calls * bound
+                        r["bytes"] += calls * nbytes
+                        r["flops"] += calls * flops
+    return rec
+
+
 # (JSON name, engine_cases kinds (timed first), source, TPU kernel, launch
 # counters summed)
 ENGINE_ROWS = [
@@ -1156,6 +1459,18 @@ def main() -> int:
     frec = flash_phase()
     print(f"[chip_smoke] hybrid phase {time.perf_counter() - t0:.1f}s")
 
+    t0 = time.perf_counter()
+    moe = moe_serve(serve_mod)
+    served_moe = moe.pop("out")
+    keep = {k: served_moe[k] for k in ("model", "payload", "prompts")}
+    del served_moe
+    torch.cuda.empty_cache()
+    gates = moe_f32_gates(serve_mod, keep)
+    del keep
+    torch.cuda.empty_cache()
+    mrec = moe_kernel_phase(ops, cases, moe.pop("chains"))
+    print(f"[chip_smoke] moe phase {time.perf_counter() - t0:.1f}s")
+
     kernels = []
     for name in ops.KERNELS:
         path = paths["tt" if not name.endswith("q") else "tt-int8"]
@@ -1175,6 +1490,26 @@ def main() -> int:
                          >= r["flops"] / F32_FLOPS else "operations"),
             "library_ms": r["library_ms"],
             "timed": "sum over one layer's calls at B=4, main-path shapes",
+        })
+    for name in ops.BATCHED:
+        r = mrec[name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/tt_contract/csrc/tt_contract.cu",
+            "replaces": BATCHED_TPU,
+            "launches": moe["tt-int8" if "q_" in name else "tt"][
+                "counts"].get(name, 0),
+            "max_abs_err": r["max_abs_err"],
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"],
+            "bound_by": ("bytes" if r["bytes"] / HBM_BYTES_PER_S
+                         >= r["flops"] / F32_FLOPS else "operations"),
+            "library_ms": r["library_ms"],
+            "timed": ("sum over one olmoe-1b-7b layer's three bank calls, "
+                      "64 experts x 1 token" if "_2" in name else
+                      "sum over the four depth-3 chains of cases.py "
+                      "(split 1 and 2), 64 experts x 1 token; on no "
+                      "config's path"),
         })
     engine_counts = {**full["counts"], **resnet["counts"]}
     for name, kinds, src, replaces, keys in ENGINE_ROWS:
@@ -1217,6 +1552,8 @@ def main() -> int:
         "serve": served["summary"],
         "prefill": {k: v for k, v in hybrid.items() if k != "counts"},
         "prefill_launches": hybrid["counts"]}))
+    print(f"[chip_smoke] moe summary: " + json.dumps(
+        {"serve": moe, "f32": gates}))
     print(f"[chip_smoke] engine summary: " + json.dumps({
         "full_width": {k: full[k] for k in (
             "secs", "decay_s", "eps_worst", "f32_oracle", "breakdown")},

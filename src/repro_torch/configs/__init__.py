@@ -4,13 +4,14 @@ from __future__ import annotations
 
 import importlib
 
-from repro_torch.configs.base import HybridConfig, ModelConfig
+from repro_torch.configs.base import HybridConfig, ModelConfig, MoEConfig
 
 # canonical names → module ids; the other archs of the JAX zoo come with
 # their families (ROADMAP.md queue 1, item 7)
 NAME_TO_MODULE = {
     "qwen1.5-0.5b": "qwen1p5_0p5b",
     "recurrentgemma-2b": "recurrentgemma_2b",
+    "olmoe-1b-7b": "olmoe_1b_7b",
 }
 
 
@@ -24,4 +25,5 @@ def get_config(name: str) -> ModelConfig:
     return importlib.import_module(f"repro_torch.configs.{mod_name}").CONFIG
 
 
-__all__ = ["HybridConfig", "ModelConfig", "NAME_TO_MODULE", "get_config"]
+__all__ = ["HybridConfig", "ModelConfig", "MoEConfig", "NAME_TO_MODULE",
+           "get_config"]

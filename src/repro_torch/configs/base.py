@@ -1,8 +1,9 @@
 """Model configuration: the ``ModelConfig`` fields the ported families read.
 
-A copy of the dense- and hybrid-family parts of the JAX package's
+A copy of the dense-, MoE- and hybrid-family parts of the JAX package's
 ``configs/base.py`` (the port never imports that package).  The other
-families and the training/sharding knobs come with later slices.
+families and the training/sharding knobs (the MoE ones ``opt_moe_ep`` and
+``opt_moe_a2a`` included: TPU-mesh layouts) come with later slices.
 """
 
 from __future__ import annotations
@@ -10,6 +11,13 @@ from __future__ import annotations
 import dataclasses
 from dataclasses import dataclass
 from typing import Optional, Tuple
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    num_experts: int
+    num_experts_per_tok: int
+    d_ff: int                     # per-expert hidden size
 
 
 @dataclass(frozen=True)
@@ -23,7 +31,7 @@ class HybridConfig:
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                   # dense | hybrid (the families ported so far)
+    family: str                   # dense | moe | hybrid (ported so far)
     num_layers: int
     d_model: int
     num_heads: int
@@ -41,6 +49,7 @@ class ModelConfig:
     # local/global attention: every ``global_every``-th layer global
     window: Optional[int] = None
     global_every: Optional[int] = None
+    moe: Optional[MoEConfig] = None
     hybrid: Optional[HybridConfig] = None
     dtype: str = "bfloat16"
 
@@ -64,6 +73,9 @@ class ModelConfig:
             vocab_size=512,
             head_dim=32 if self.head_dim else None,
         )
+        if self.moe:
+            base["moe"] = MoEConfig(num_experts=8, num_experts_per_tok=2,
+                                    d_ff=64)
         if self.hybrid:
             base["hybrid"] = HybridConfig(
                 pattern=self.hybrid.pattern, lru_width=128, window=32)

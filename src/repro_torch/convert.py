@@ -5,17 +5,19 @@ Both take ``{dot-path: ...}`` dictionaries in the JAX package's path naming
 ``layers.attn.wq``), so the same numbers can be served by both packages:
 
   * ``params_from_numpy(flat, cfg, device)`` — ``{path: np.ndarray}`` →
-    the port's params of ``cfg.family`` (``TransformerParams`` or
-    ``GriffinParams``) in ``cfg.dtype`` (Λ stays float32, as the
-    reference keeps it);
+    the port's params of ``cfg.family`` (``TransformerParams`` for the
+    dense and MoE families, ``GriffinParams``) in ``cfg.dtype`` (Λ stays
+    float32, as the reference keeps it); a layer's FFN subtree must be the
+    one its config has (``mlp``, or ``moe`` when ``cfg.moe`` is set);
   * ``payload_from_numpy(flat, device)`` — ``{path: {"kind": "tt" |
     "raw", "cores": [np.ndarray, ...] | "raw": np.ndarray, "orig_shape",
     "orig_dtype", "eps"}}`` → a tree of ``CompressedParam`` shaped like the
     params (the family read off the top-level names), ready for
     ``models.common.tt_native_params``.
 
-Optional subtrees (the hybrid ``tail``, an untied ``lm_head``) are ``None``
-when ``flat`` has none of their paths.
+Optional subtrees (the hybrid ``tail``, an untied ``lm_head``, the FFN
+kind a layer does not have) are ``None`` when ``flat`` has none of their
+paths.
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ from repro_torch.core.tt import TTTensor
 from repro_torch.device import torch_dtype
 from repro_torch import tree as _tree
 from repro_torch.models.attention import AttnParams
-from repro_torch.models.mlp import MLPParams
+from repro_torch.models.mlp import MLPParams, MoEParams
 from repro_torch.models.rglru import (
     AttnLayerParams, GriffinParams, RGLRULayerParams, TripleParams,
 )
@@ -39,14 +41,15 @@ from repro_torch.models.transformer import LayerParams, TransformerParams
 # the NamedTuple of each subtree field: every other field is a leaf
 _SUBTREES = {
     TransformerParams: {"layers": LayerParams},
-    LayerParams: {"attn": AttnParams, "mlp": MLPParams},
+    LayerParams: {"attn": AttnParams, "mlp": MLPParams, "moe": MoEParams},
     GriffinParams: {"triples": TripleParams, "tail": RGLRULayerParams},
     TripleParams: {"r1": RGLRULayerParams, "r2": RGLRULayerParams,
                    "at": AttnLayerParams},
     RGLRULayerParams: {"mlp": MLPParams},
     AttnLayerParams: {"attn": AttnParams, "mlp": MLPParams},
 }
-_ROOTS = {"dense": TransformerParams, "hybrid": GriffinParams}
+_ROOTS = {"dense": TransformerParams, "moe": TransformerParams,
+          "hybrid": GriffinParams}
 _F32_LEAVES = ("lam",)       # float32 whatever the model's dtype
 
 
@@ -89,6 +92,11 @@ def _assemble(flat: Mapping[str, Any], make: Callable[[str, Any], Any],
 
 def params_from_numpy(flat: Dict[str, np.ndarray], cfg, device="cpu"):
     dt = torch_dtype(cfg.dtype)
+    if cfg.family in ("dense", "moe"):
+        absent = "layers.mlp." if cfg.moe else "layers.moe."
+        foreign = sorted(p for p in flat if p.startswith(absent))
+        if foreign:
+            raise ValueError(f"paths not in a {cfg.family} model: {foreign}")
 
     def make(path, a):
         leaf_dt = (torch.float32 if path.split(".")[-1] in _F32_LEAVES

@@ -84,8 +84,9 @@ def householder_bidiagonalize_batched(
 
     Returns the thin U_B (B, M, N), B as (B, N, N) upper-bidiagonal blocks
     (the reference's M×N B is zero below row N), and V_Bᵀ (B, N, N).  With
-    ``compute_uv=False`` the two bases are ``None``.  Computes in f32 and
-    returns the input's dtype.
+    ``compute_uv=False`` the two bases are ``None``.  Computes in f32 (in
+    f64 for f64 input: the tests' rounding-free comparison) and returns the
+    input's dtype.
     """
     if a.ndim != 3:
         raise ValueError(f"expected (B, M, N), got {tuple(a.shape)}")
@@ -95,9 +96,10 @@ def householder_bidiagonalize_batched(
                          f"transpose first")
     orig_dtype = a.dtype
     dev = a.device
-    a = a.to(torch.float32).clone()
-    diag = torch.zeros((bsz, n), dtype=torch.float32, device=dev)
-    sup = torch.zeros((bsz, n), dtype=torch.float32, device=dev)
+    wide = torch.promote_types(orig_dtype, torch.float32)
+    a = a.to(wide).clone()
+    diag = torch.zeros((bsz, n), dtype=wide, device=dev)
+    sup = torch.zeros((bsz, n), dtype=wide, device=dev)
 
     # ---- reduction loop: reflectors retained in A's reduced wings ----
     for i in range(n):
@@ -118,10 +120,10 @@ def householder_bidiagonalize_batched(
         return None, b.to(orig_dtype), None
 
     # ---- accumulation loop, i = N-1..0 (thin U_B) ----
-    u_b = torch.zeros((bsz, m, n), dtype=torch.float32, device=dev)
+    u_b = torch.zeros((bsz, m, n), dtype=wide, device=dev)
     idx = torch.arange(n, device=dev)
     u_b[:, idx, idx] = 1.0
-    v_bt = torch.eye(n, dtype=torch.float32, device=dev).repeat(bsz, 1, 1)
+    v_bt = torch.eye(n, dtype=wide, device=dev).repeat(bsz, 1, 1)
     for i in range(n - 1, -1, -1):
         house_mm_update(diag[:, i], a[:, i:, i], u_b[:, i:, i:], 0)
         if i < n - 1:
@@ -137,8 +139,9 @@ def householder_bidiagonalize(a: torch.Tensor, compute_uv: bool = True
 
     Returns the thin U_B (M×N), B as the N×N upper-bidiagonal block (the
     reference's M×N B is zero below row N), and V_Bᵀ (N×N).  With
-    ``compute_uv=False`` the two bases are ``None``.  Computes in f32 and
-    returns the input's dtype.  The batched loop with one member.
+    ``compute_uv=False`` the two bases are ``None``.  Computes in f32 (f64
+    for f64 input) and returns the input's dtype.  The batched loop with
+    one member.
     """
     if a.ndim != 2:
         raise ValueError(f"expected (M, N), got {tuple(a.shape)}")

@@ -69,8 +69,11 @@ def _svd(a: torch.Tensor, method: str, hbd_impl: str, panel: int
     else:
         u_b, b, v_bt = householder_bidiagonalize(a32)
     q, s, pt = torch.linalg.svd(b, full_matrices=False)    # phase 2, N×N
-    res = sorting_basis(u_b @ q, s, pt @ v_bt)
-    return SVDResult(u=res.u.to(orig), s=res.s.to(orig), vt=res.vt.to(orig))
+    # the sort's index vector permutes the small phase-2 factors: U_B (Q P)
+    # is (U_B Q) P, without a second M×N copy of the big one
+    q, s, pt = sorting_basis(q, s, pt)
+    return SVDResult(u=(u_b @ q).to(orig), s=s.to(orig),
+                     vt=(pt @ v_bt).to(orig))
 
 
 def svd(a: torch.Tensor, method: str = "two_phase",

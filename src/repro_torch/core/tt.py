@@ -71,15 +71,19 @@ def ttd(w: torch.Tensor, eps: float = 0.05,
     cores: List[torch.Tensor] = []
     ranks = [1]
     w_temp = w
+    del w
     for k in range(d - 1):
         mat = w_temp.reshape(ranks[-1] * shape[k], -1)      # Reshape (line 7)
         res = _svd_fn(mat, method=svd_method, hbd_impl=hbd_impl)  # (8-9)
+        # at full width an unfolding and each of its factors are GBs: drop
+        # every one as soon as it is dead
+        del mat, w_temp
         r = _trunc.truncation_rank(res.s, delta)            # δ-Trunc. (10)
         if max_rank is not None:
             r = min(r, max_rank)
-        u, s, vt = res.u[:, :r], res.s[:r], res.vt[:r, :]
-        w_temp = s[:, None] * vt                            # Σ_t V_tᵀ (11)
-        cores.append(u.reshape(ranks[-1], shape[k], r).contiguous())
+        cores.append(res.u[:, :r].reshape(ranks[-1], shape[k], r).contiguous())
+        w_temp = res.s[:r, None] * res.vt[:r, :]            # Σ_t V_tᵀ (11)
+        del res
         ranks.append(r)
     cores.append(w_temp.reshape(ranks[-1], shape[-1], 1).contiguous())
     ranks.append(1)

@@ -1,20 +1,23 @@
 """TTLinear — apply a dense layer straight from its TT cores.
 
-Port of the JAX package's ``core/tt_linear.py`` (without expert banks,
-which come with the MoE slice).  A ``TTLinear`` wraps one layer-stacked
-weight:
+Port of the JAX package's ``core/tt_linear.py``.  A ``TTLinear`` wraps
+one layer-stacked weight:
 
-  * ``lead``  — ``(L, r_s)`` per-layer boundary vectors: the layer-stack
-                modes of the joint TT contracted at every layer index.
-                ``None`` for unstacked weights.
-  * ``cores`` — the remaining input/output cores, shared by every layer.
-  * ``split`` — how many of ``cores`` are input cores.
+  * ``lead``    — ``(L, r_s)`` per-layer boundary vectors: the layer-stack
+                  modes of the joint TT contracted at every layer index.
+                  ``None`` for unstacked weights.
+  * ``cores``   — the remaining input/output cores, shared by every layer.
+  * ``split``   — how many of ``cores`` are input cores.
+  * ``experts`` — MoE expert banks keep one more lead mode: the stacked
+                  lead table is ``(L, E, r_s)`` and ``select_layer`` yields
+                  ``(E, r_s)``, a family of chains over the same cores that
+                  ``tt_apply_experts`` runs as one expert-batched chain.
 
 Quantized storage: ``quantize_tt`` rounds every core to a symmetric int8
-grid with one scale per core and one scale per lead row; the int8 kernels
-widen the tail cores in registers and apply the scale product once to the
-output.  Round-to-nearest bounds the error per element by
-``amax / (2·qmax)``.
+grid with one scale per core and one scale per lead row (per layer, and per
+(layer, expert) for a bank); the int8 kernels widen the tail cores in
+registers and apply the scale product once to the output.  Round-to-nearest
+bounds the error per element by ``amax / (2·qmax)``.
 
 ``tt_apply`` absorbs the selected layer's lead vector into the first core
 and runs the chain through ``kernels/tt_contract`` — on CUDA tensors the
@@ -35,14 +38,16 @@ from repro_torch.core import tt as _tt
 
 @dataclass
 class TTLinear:
-    lead: Optional[torch.Tensor]     # (L, r_s) stacked | (r_s,) | None
+    lead: Optional[torch.Tensor]     # (L[, E], r_s) stacked | ([E,] r_s) | None
     cores: List[torch.Tensor]        # [g (r, n, s), ...]; cores[0] r == r_s
     split: int                       # number of input cores
     in_shape: Tuple[int, ...]        # dense-weight input dims, e.g. (D,)
     out_shape: Tuple[int, ...]       # dense-weight output dims, e.g. (H, K)
     dtype: torch.dtype = torch.bfloat16   # activation dtype of the original
+    experts: Optional[int] = None    # expert-bank size E (a lead batch axis)
     scales: Optional[List[torch.Tensor]] = None   # per-core () f32 scales
-    lead_scale: Optional[torch.Tensor] = None     # per-lead-row f32 scales
+    lead_scale: Optional[torch.Tensor] = None     # per-lead-row f32 scales:
+                                     # (L,) stacked / (L, E) experts / ()
 
     @property
     def quantized(self) -> bool:
@@ -50,7 +55,9 @@ class TTLinear:
 
     @property
     def stacked(self) -> bool:
-        return self.lead is not None and self.lead.ndim == 2
+        """True while the lead table still carries its layer axis."""
+        return (self.lead is not None
+                and self.lead.ndim == (3 if self.experts else 2))
 
     @property
     def num_layers(self) -> Optional[int]:
@@ -78,7 +85,8 @@ def select_layer(t: TTLinear, idx: Union[int, torch.Tensor]) -> TTLinear:
     i = min(max(int(idx), 0), t.lead.shape[0] - 1)
     return TTLinear(
         lead=t.lead[i], cores=t.cores, split=t.split, in_shape=t.in_shape,
-        out_shape=t.out_shape, dtype=t.dtype, scales=t.scales,
+        out_shape=t.out_shape, dtype=t.dtype, experts=t.experts,
+        scales=t.scales,
         lead_scale=None if t.lead_scale is None else t.lead_scale[i],
     )
 
@@ -156,7 +164,8 @@ def dequantize_array(q: torch.Tensor, scale: torch.Tensor,
 
 def quantize_tt(t: TTLinear, dtype=torch.int8,
                 calib: str = "absmax") -> TTLinear:
-    """One scale per core, one scale per lead row (over its rank axis)."""
+    """One scale per core, one scale per lead row over its rank axis (per
+    layer, and per (layer, expert) for an expert bank)."""
     if t.quantized:
         raise ValueError("TTLinear is already quantized")
     cores, scales = [], []
@@ -170,7 +179,8 @@ def quantize_tt(t: TTLinear, dtype=torch.int8,
                                           axis=-1)
     return TTLinear(lead=lead, cores=cores, split=t.split,
                     in_shape=t.in_shape, out_shape=t.out_shape,
-                    dtype=t.dtype, scales=scales, lead_scale=lead_scale)
+                    dtype=t.dtype, experts=t.experts, scales=scales,
+                    lead_scale=lead_scale)
 
 
 def dequantize_tt(t: TTLinear) -> TTLinear:
@@ -183,7 +193,7 @@ def dequantize_tt(t: TTLinear) -> TTLinear:
         lead = dequantize_array(lead, t.lead_scale, axis=-1)
     return TTLinear(lead=lead, cores=cores, split=t.split,
                     in_shape=t.in_shape, out_shape=t.out_shape,
-                    dtype=t.dtype)
+                    dtype=t.dtype, experts=t.experts)
 
 
 def quantize_tt_tree(params, dtype=torch.int8, calib: str = "absmax"):
@@ -197,6 +207,8 @@ def quantize_tt_tree(params, dtype=torch.int8, calib: str = "absmax"):
 
 def tt_apply(x: torch.Tensor, t: TTLinear) -> torch.Tensor:
     """y = x · W from cores alone; x (..., *in_shape) → (..., *out_shape)."""
+    if t.experts:
+        raise ValueError("expert-bank TTLinear: use tt_apply_experts")
     if t.lead is not None and t.lead.ndim != 1:
         raise ValueError("stacked TTLinear: select_layer() before apply")
     nin = len(t.in_shape)
@@ -231,6 +243,45 @@ def tt_apply(x: torch.Tensor, t: TTLinear) -> torch.Tensor:
     return y2.reshape(*batch, *t.out_shape).to(x.dtype)
 
 
+def tt_apply_experts(x: torch.Tensor, t: TTLinear) -> torch.Tensor:
+    """Expert-banked apply: y[e] = x[e] · W[e] straight from cores.
+
+    x (E, C, *in_shape) → (E, C, *out_shape).  The experts share every
+    core and differ only in their lead rows, so the bank runs as one
+    expert-batched chain (``tt_contract_batched``); the dense
+    (E, N_in, N_out) bank never exists.  The per-expert lead absorption
+    (E, r_s)·(r_s, n_1, r_1) is a plain einsum, as in the reference."""
+    if not t.experts:
+        raise ValueError("plain TTLinear: use tt_apply")
+    if t.lead is None or t.lead.ndim != 2:
+        raise ValueError("stacked expert TTLinear: select_layer() before "
+                         "apply")
+    e = int(t.lead.shape[0])
+    if x.shape[0] != e:
+        raise ValueError(f"input {tuple(x.shape)} has no leading axis of "
+                         f"{e} experts")
+    nin = len(t.in_shape)
+    if tuple(x.shape[x.ndim - nin:]) != tuple(t.in_shape):
+        raise ValueError(f"input {tuple(x.shape)} does not end in "
+                         f"{t.in_shape}")
+    batch = x.shape[1: x.ndim - nin]
+    x3 = x.reshape(e, int(np.prod(batch or (1,))), -1)
+
+    lead = t.lead
+    tail_scales = None
+    if t.quantized:
+        lead = dequantize_array(lead, t.lead_scale, axis=-1)   # (E, r_s)
+        tail_scales = list(t.scales[1:])
+    g0e = torch.einsum("er,rns->ens", lead.float(), t.cores[0].float())
+    if t.quantized:
+        g0e = g0e * t.scales[0]
+
+    from repro_torch.kernels.tt_contract.ops import tt_contract_batched
+    y3 = tt_contract_batched(x3, g0e, list(t.cores[1:]), split=t.split,
+                             scales=tail_scales)
+    return y3.reshape(e, *batch, *t.out_shape).to(x.dtype)
+
+
 # ---------------------------------------------------------------------------
 # Conversion: compressor payload (whole stacked tensor) → TTLinear
 # ---------------------------------------------------------------------------
@@ -252,13 +303,19 @@ def _group_dims(tt_dims: Sequence[int], orig_shape: Sequence[int]):
 
 def tt_linear_from_tt(tt: _tt.TTTensor, orig_shape: Sequence[int],
                       stack: int, in_ndim: int, dtype=torch.bfloat16,
-                      core_dtype=torch.float32) -> Optional[TTLinear]:
+                      core_dtype=torch.float32,
+                      experts: int = 0) -> Optional[TTLinear]:
     """Build a TTLinear from a whole-tensor TT of a (stacked) dense weight.
 
     orig_shape = (*stack_dims, *in_dims, *out_dims).  The stack modes are
     contracted at every layer index into the ``(L, r_s)`` lead table; the
-    in/out cores are shared.  Returns None when the TT's dims do not map
-    onto the axes (the caller then reconstructs)."""
+    in/out cores are shared.  ``experts``: how many trailing stack axes
+    form an expert bank (MoE weights (L, E, D, F) use stack=2, experts=1);
+    they stay a batch axis of the lead table, ``(L, E, r_s)``.  Returns None
+    when the TT's dims do not map onto the axes (the caller then
+    reconstructs)."""
+    if not 0 <= experts <= stack:
+        raise ValueError(f"experts {experts} outside 0..stack {stack}")
     groups = _group_dims(tt.shape, orig_shape)
     if groups is None:
         return None
@@ -266,20 +323,27 @@ def tt_linear_from_tt(tt: _tt.TTTensor, orig_shape: Sequence[int],
     split = sum(groups[stack: stack + in_ndim])
     if split < 1 or len(tt.cores) - ns - split < 1:
         return None
+    if experts and ns == 0:
+        return None                  # an expert bank needs its stack modes
     lead = None
+    n_experts = None
     cores = [c.float() for c in tt.cores]
     if ns > 0:
         acc = cores[0].reshape(-1, cores[0].shape[2])  # (n_1, r_1)
         for k in range(1, ns):
             r, n, s = cores[k].shape
             acc = (acc @ cores[k].reshape(r, n * s)).reshape(-1, s)
-        lead = acc
+        lead = acc                                     # (L[·E], r_s)
+        if experts:
+            n_experts = int(np.prod(orig_shape[stack - experts: stack]))
+            lead = lead.reshape(-1, n_experts, lead.shape[-1])
         cores = cores[ns:]
     return TTLinear(
         lead=None if lead is None else lead.to(core_dtype).contiguous(),
         cores=[c.to(core_dtype).contiguous() for c in cores], split=split,
         in_shape=tuple(orig_shape[stack: stack + in_ndim]),
         out_shape=tuple(orig_shape[stack + in_ndim:]), dtype=dtype,
+        experts=n_experts,
     )
 
 
@@ -308,23 +372,49 @@ def tt_leaf_bytes(tree) -> Tuple[int, int]:
             continue
         tt_b += sum(_nbytes(a) for a in leaf.tensors())
         n = int(np.prod(leaf.in_shape)) * int(np.prod(leaf.out_shape))
-        n *= leaf.num_layers or 1
+        n *= (leaf.num_layers or 1) * (leaf.experts or 1)
         dense_b += n * torch.empty((), dtype=leaf.dtype).element_size()
     return tt_b, dense_b
 
 
 def spectral_decay_pytree(params, alpha: float = 1.0, min_size: int = 8192):
     """Impose a power-law singular spectrum (σ_i ∝ i^-α) on every big ≥2-D
-    leaf, as trained weights have (random init is incompressible).  The
-    SVD runs on the tensor's own device, in f32."""
+    leaf, as trained weights have (random init is incompressible): the
+    leaf reshaped to (rows, last axis) keeps its singular vectors and takes
+    σ_i = σ_1·i^-α, on the tensor's own device.
+
+    The reference takes a full SVD.  Here the singular pairs come from the
+    float64 Gram matrix of the narrow side (AᵀA = V Σ² Vᵀ, summed over row
+    chunks), and the result is A·V diag(σ_target / σ) Vᵀ = U diag(σ_target)
+    Vᵀ, streamed in row chunks: no (rows × n) U is formed, and cuSOLVER's
+    dense SVD, which refuses an unfolding as tall as an olmoe-1b-7b expert
+    bank's (2,097,152 × 1,024), is not needed.  Random leaves are well
+    conditioned, so the squared condition number of the Gram matrix costs
+    nothing in float64."""
     def one(p):
         if not isinstance(p, torch.Tensor) or p.ndim < 2 or p.numel() < min_size:
             return p
-        mat = p.float().reshape(-1, p.shape[-1])
-        u, s, vt = torch.linalg.svd(mat, full_matrices=False)
-        k = torch.arange(1, s.numel() + 1, dtype=torch.float32,
-                         device=s.device)
-        target = s[0] * k ** -alpha
-        return ((u * target) @ vt).reshape(p.shape).to(p.dtype)
+        mat = p.reshape(-1, p.shape[-1])
+        wide = mat.shape[0] < mat.shape[1]
+        if wide:
+            mat = mat.T
+        n = mat.shape[1]
+        chunks = torch.split(mat, max(1, _DECAY_CHUNK // n))
+        gram = torch.zeros((n, n), dtype=torch.float64, device=p.device)
+        for rows in chunks:
+            r = rows.double()
+            gram += r.T @ r
+        lam, v = torch.linalg.eigh(gram)                 # ascending
+        sig = lam.flip(0).clamp(min=0).sqrt()
+        v = v.flip(1)
+        k = torch.arange(1, n + 1, dtype=torch.float64, device=p.device)
+        target = sig[0] * k ** -alpha
+        ratio = torch.where(sig > 0, target / sig.clamp(min=1e-300), 0.0)
+        m = ((v * ratio) @ v.T).float()
+        out = torch.cat([(rows.float() @ m).to(p.dtype) for rows in chunks])
+        return (out.T if wide else out).reshape(p.shape)
 
     return _tree.map_leaves(one, params)
+
+
+_DECAY_CHUNK = 1 << 27       # elements per row chunk of spectral_decay_pytree

@@ -6,6 +6,10 @@
 //   tt_contract_2q / tt_contract_3q (_tt2q_kernel, _tt3q_kernel): the same with
 //   the tail cores stored as int8, widened in registers, and the product of the
 //   per-core scales applied once to the output.
+// and the expert-batched chain of src/repro/kernels/tt_contract/ops.py
+// (tt_contract_batched, a jax.vmap of the four over the expert axis): E
+// chains that differ only in their lead-absorbed first core and share the
+// tail cores and the scale, all in the same two launches.
 // One template on the tail cores' storage type: float or bf16 (the wide
 // kernels; serving stores cores in the weights' dtype) and int8.
 //
@@ -31,6 +35,11 @@
 //
 // At decode batch sizes every phase is bound by the bytes of the cores it
 // reads (a few FLOPs per byte); see PERF.md for times beside that bound.
+//
+// Expert axis: the token-tile grid axis (z in phase A, y in phase B) runs
+// over E * ceil(B / 8) tiles, expert-major.  Each block offsets x, the first
+// core, the partials and y by its expert's stride; the tail cores and the
+// scale are shared.  A single chain is E = 1.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -61,8 +70,15 @@ __device__ __forceinline__ float widen(float v) { return v; }
 __device__ __forceinline__ float widen(int8_t v) { return static_cast<float>(v); }
 __device__ __forceinline__ float widen(__nv_bfloat16 v) { return __bfloat162float(v); }
 
+// Split a token-tile grid index into (expert, first token row of the tile).
+__device__ __forceinline__ int expert_tile(int tile, int B, int* row0) {
+  const int rt = (B + kRows - 1) / kRows;
+  *row0 = (tile % rt) * kRows;
+  return tile / rt;
+}
+
 // Phase A, split 1: part[c, b, r] = sum_{k in chunk c} x[b, k] * g0[k, r].
-// grid (nchunk, ceil(r1 / 32), ceil(B / 8)); 8 warps share the k-range.
+// grid (nchunk, ceil(r1 / 32), E * ceil(B / 8)); 8 warps share the k-range.
 __global__ void __launch_bounds__(kThreads) reduce_in_kernel(
     const float* __restrict__ x, const float* __restrict__ g0,
     float* __restrict__ part, int B, int n1, int r1, int kchunk) {
@@ -71,7 +87,11 @@ __global__ void __launch_bounds__(kThreads) reduce_in_kernel(
   const int lane = threadIdx.x % kColTile;
   const int warp = threadIdx.x / kColTile;
   const int col = blockIdx.y * kColTile + lane;
-  const int row0 = blockIdx.z * kRows;
+  int row0;
+  const size_t e = expert_tile(blockIdx.z, B, &row0);
+  x += e * B * n1;
+  g0 += e * n1 * r1;
+  part += e * gridDim.x * B * r1;
   const int k0 = blockIdx.x * kchunk;
   const int k1 = min(n1, k0 + kchunk);
   float acc[kRows];
@@ -108,7 +128,7 @@ __global__ void __launch_bounds__(kThreads) reduce_in_kernel(
 // part[c, b, s] = sum_{i2 in chunk c} sum_r (sum_a x[b, a, i2] g0[a, r]) g1[r, i2, s].
 // Streams over i2 (n_mid) and r1 chunks, so the (B, n2 * r1) intermediate
 // never exists: only a (8 x 64) slice of it lives in shared memory.
-// grid (nchunk, ceil(r2 / 64), ceil(B / 8)).
+// grid (nchunk, ceil(r2 / 64), E * ceil(B / 8)).
 template <typename T>
 __global__ void __launch_bounds__(kThreads) contract2_kernel(
     const float* __restrict__ x, const float* __restrict__ g0,
@@ -119,8 +139,12 @@ __global__ void __launch_bounds__(kThreads) contract2_kernel(
   const int s_lane = threadIdx.x % kSTile;
   const int rgrp = threadIdx.x / kSTile;
   const int s = blockIdx.y * kSTile + s_lane;
-  const int row0 = blockIdx.z * kRows;
+  int row0;
+  const size_t e = expert_tile(blockIdx.z, B, &row0);
   const size_t n_in = (size_t)n1 * n2;
+  x += e * B * n_in;
+  g0 += e * n1 * r1;
+  part += e * gridDim.x * B * r2;
   const int i_begin = blockIdx.x * ichunk;
   const int i_end = min(n2, i_begin + ichunk);
   float acc[kSRowsPerThread];
@@ -178,7 +202,7 @@ __device__ __forceinline__ void load_rank_chunk(
 }
 
 // Phase B, one output core: y[b, n] = scale * sum_r t[b, r] g[r, n],
-// t = sum over the phase-A partials.  grid (ceil(n / 128), ceil(B / 8)).
+// t = sum over the phase-A partials.  grid (ceil(n / 128), E * ceil(B / 8)).
 template <typename T>
 __global__ void __launch_bounds__(kThreads) expand1_kernel(
     const float* __restrict__ part, const T* __restrict__ g,
@@ -189,7 +213,10 @@ __global__ void __launch_bounds__(kThreads) expand1_kernel(
   const int lane = threadIdx.x % kOutTile;
   const int rgrp = threadIdx.x / kOutTile;
   const int col = blockIdx.x * kOutTile + lane;
-  const int row0 = blockIdx.y * kRows;
+  int row0;
+  const size_t e = expert_tile(blockIdx.y, B, &row0);
+  part += e * nchunk * B * r;
+  y += e * B * n;
   float acc[kORowsPerThread];
 #pragma unroll
   for (int u = 0; u < kORowsPerThread; ++u) acc[u] = 0.f;
@@ -224,7 +251,7 @@ __global__ void __launch_bounds__(kThreads) expand1_kernel(
 
 // Phase B, two output cores (split 1):
 // y[b, i2 * n3 + j] = scale * sum_s (sum_r t[b, r] g1[r, i2, s]) g2[s, j].
-// grid (n2 * ceil(n3 / 128), ceil(B / 8)): one output mode index and one
+// grid (n2 * ceil(n3 / 128), E * ceil(B / 8)): one output mode index and one
 // 128-column tile of n3 per block.
 template <typename T>
 __global__ void __launch_bounds__(kThreads) expand2_kernel(
@@ -237,7 +264,10 @@ __global__ void __launch_bounds__(kThreads) expand2_kernel(
   const int jtiles = (n3 + kOutTile - 1) / kOutTile;
   const int i2 = blockIdx.x / jtiles;
   const int j0 = (blockIdx.x % jtiles) * kOutTile;
-  const int row0 = blockIdx.y * kRows;
+  int row0;
+  const size_t e = expert_tile(blockIdx.y, B, &row0);
+  part += e * nchunk * B * r1;
+  y += e * B * n2 * n3;
   const int lane = threadIdx.x % kOutTile;
   const int rgrp = threadIdx.x / kOutTile;
   const int tq = threadIdx.x % kSChunk;
@@ -282,18 +312,20 @@ __global__ void __launch_bounds__(kThreads) expand2_kernel(
   }
 }
 
-inline int row_tiles(int B) { return (B + kRows - 1) / kRows; }
+// token tiles of all E experts: the grid's expert-major tile axis
+inline int row_tiles(int E, int B) { return E * ((B + kRows - 1) / kRows); }
 inline int cdiv(int a, int b) { return (a + b - 1) / b; }
 
 template <typename T>
 int launch_chain2(const float* x, const float* g0, const T* g1,
-                  const float* scale, float* part, float* y, int B, int n1,
-                  int r1, int n2, int kchunk, int nchunk, cudaStream_t st) {
-  const dim3 ga(nchunk, cdiv(r1, kColTile), row_tiles(B));
+                  const float* scale, float* part, float* y, int E, int B,
+                  int n1, int r1, int n2, int kchunk, int nchunk,
+                  cudaStream_t st) {
+  const dim3 ga(nchunk, cdiv(r1, kColTile), row_tiles(E, B));
   reduce_in_kernel<<<ga, kThreads, 0, st>>>(x, g0, part, B, n1, r1, kchunk);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  const dim3 gb(cdiv(n2, kOutTile), row_tiles(B));
+  const dim3 gb(cdiv(n2, kOutTile), row_tiles(E, B));
   expand1_kernel<T><<<gb, kThreads, 0, st>>>(part, g1, scale, y, B, nchunk, r1, n2);
   return (int)cudaGetLastError();
 }
@@ -301,13 +333,13 @@ int launch_chain2(const float* x, const float* g0, const T* g1,
 template <typename T>
 int launch_chain3_split1(const float* x, const float* g0, const T* g1,
                          const T* g2, const float* scale, float* part, float* y,
-                         int B, int n1, int r1, int n2, int r2, int n3,
+                         int E, int B, int n1, int r1, int n2, int r2, int n3,
                          int kchunk, int nchunk, cudaStream_t st) {
-  const dim3 ga(nchunk, cdiv(r1, kColTile), row_tiles(B));
+  const dim3 ga(nchunk, cdiv(r1, kColTile), row_tiles(E, B));
   reduce_in_kernel<<<ga, kThreads, 0, st>>>(x, g0, part, B, n1, r1, kchunk);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  const dim3 gb(n2 * cdiv(n3, kOutTile), row_tiles(B));
+  const dim3 gb(n2 * cdiv(n3, kOutTile), row_tiles(E, B));
   expand2_kernel<T><<<gb, kThreads, 0, st>>>(part, g1, g2, scale, y, B, nchunk,
                                              r1, n2, r2, n3);
   return (int)cudaGetLastError();
@@ -316,14 +348,14 @@ int launch_chain3_split1(const float* x, const float* g0, const T* g1,
 template <typename T>
 int launch_chain3_split2(const float* x, const float* g0, const T* g1,
                          const T* g2, const float* scale, float* part, float* y,
-                         int B, int n1, int n2, int r1, int r2, int n3,
+                         int E, int B, int n1, int n2, int r1, int r2, int n3,
                          int ichunk, int nchunk, cudaStream_t st) {
-  const dim3 ga(nchunk, cdiv(r2, kSTile), row_tiles(B));
+  const dim3 ga(nchunk, cdiv(r2, kSTile), row_tiles(E, B));
   contract2_kernel<T><<<ga, kThreads, 0, st>>>(x, g0, g1, part, B, n1, n2, r1,
                                                r2, ichunk);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  const dim3 gb(cdiv(n3, kOutTile), row_tiles(B));
+  const dim3 gb(cdiv(n3, kOutTile), row_tiles(E, B));
   expand1_kernel<T><<<gb, kThreads, 0, st>>>(part, g2, scale, y, B, nchunk, r2, n3);
   return (int)cudaGetLastError();
 }
@@ -332,30 +364,34 @@ int launch_chain3_split2(const float* x, const float* g0, const T* g1,
 
 // All entry points return a cudaError_t value (0 = launched).  Pointers are
 // device pointers; `stream` is a cudaStream_t; `scale` is a device pointer to
-// one f32 or null (no scaling); `part` is f32 scratch of nchunk * B * R floats.
-// Suffix = storage type of the tail cores: f32, bf16 (wide) or i8 (quantized).
+// one f32 or null (no scaling); `part` is f32 scratch of E * nchunk * B * R
+// floats.  Suffix = storage type of the tail cores: f32, bf16 (wide) or i8
+// (quantized).  Each runs E chains: x (E, B, N_in), g0 (E, n1, r1), y
+// (E, B, N_out), the tail cores and the scale shared; one chain is E = 1.
 #define TT_EXPORTS(SUFFIX, T)                                                  \
-  int tt_contract_2_##SUFFIX(const float* x, const float* g0, const T* g1,     \
-                             const float* scale, float* part, float* y, int B, \
-                             int n1, int r1, int n2, int kchunk, int nchunk,   \
-                             void* stream) {                                   \
-    return launch_chain2<T>(x, g0, g1, scale, part, y, B, n1, r1, n2, kchunk,  \
-                            nchunk, (cudaStream_t)stream);                     \
+  int tt_contract_2b_##SUFFIX(const float* x, const float* g0, const T* g1,    \
+                              const float* scale, float* part, float* y,       \
+                              int E, int B, int n1, int r1, int n2,            \
+                              int kchunk, int nchunk, void* stream) {          \
+    return launch_chain2<T>(x, g0, g1, scale, part, y, E, B, n1, r1, n2,       \
+                            kchunk, nchunk, (cudaStream_t)stream);             \
   }                                                                            \
-  int tt_contract_3s1_##SUFFIX(const float* x, const float* g0, const T* g1,   \
-                               const T* g2, const float* scale, float* part,   \
-                               float* y, int B, int n1, int r1, int n2, int r2, \
-                               int n3, int kchunk, int nchunk, void* stream) { \
-    return launch_chain3_split1<T>(x, g0, g1, g2, scale, part, y, B, n1, r1,   \
-                                   n2, r2, n3, kchunk, nchunk,                 \
+  int tt_contract_3s1b_##SUFFIX(const float* x, const float* g0, const T* g1,  \
+                                const T* g2, const float* scale, float* part,  \
+                                float* y, int E, int B, int n1, int r1,        \
+                                int n2, int r2, int n3, int kchunk,            \
+                                int nchunk, void* stream) {                    \
+    return launch_chain3_split1<T>(x, g0, g1, g2, scale, part, y, E, B, n1,    \
+                                   r1, n2, r2, n3, kchunk, nchunk,             \
                                    (cudaStream_t)stream);                      \
   }                                                                            \
-  int tt_contract_3s2_##SUFFIX(const float* x, const float* g0, const T* g1,   \
-                               const T* g2, const float* scale, float* part,   \
-                               float* y, int B, int n1, int n2, int r1, int r2, \
-                               int n3, int ichunk, int nchunk, void* stream) { \
-    return launch_chain3_split2<T>(x, g0, g1, g2, scale, part, y, B, n1, n2,   \
-                                   r1, r2, n3, ichunk, nchunk,                 \
+  int tt_contract_3s2b_##SUFFIX(const float* x, const float* g0, const T* g1,  \
+                                const T* g2, const float* scale, float* part,  \
+                                float* y, int E, int B, int n1, int n2,        \
+                                int r1, int r2, int n3, int ichunk,            \
+                                int nchunk, void* stream) {                    \
+    return launch_chain3_split2<T>(x, g0, g1, g2, scale, part, y, E, B, n1,    \
+                                   n2, r1, r2, n3, ichunk, nchunk,             \
                                    (cudaStream_t)stream);                      \
   }
 

@@ -6,6 +6,14 @@
   * depth 3 (split 1 or 2) → ``tt_contract_3`` / ``tt_contract_3q``
   * anything else          → ``tt_contract_ref`` (unfused einsum chain)
 
+``tt_contract_batched`` is the expert-batched chain (the reference's
+``jax.vmap`` of the same dispatch over the expert axis): x (E, B, N_in)
+through E lead-absorbed first cores (E, n1, r1) and one shared tail, in the
+same two launches as one chain, the expert axis folded into the kernels'
+token-tile grid axis.  Its routes count under the kernel's name and under
+``<kernel>_batched``; other depths and splits go to
+``tt_contract_batched_ref`` and count as ``"plain_chains"``.
+
 There is no size gate: the CUDA kernels stream their cores through shared
 memory in tiles (``csrc/tt_contract.cu``), so every depth-2/3 chain runs
 fused whatever its width.  Each wrapper launches its kernel for CUDA
@@ -29,12 +37,14 @@ import torch
 
 from repro_torch.kernels import build as _build
 from repro_torch.kernels.tt_contract.ref import (
-    tt_contract_ref, tt_dense_ref, tt_dequant_chain,
+    tt_contract_batched_ref, tt_contract_ref, tt_dense_ref, tt_dequant_chain,
 )
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "tt_contract.cu"
 KERNELS = ("tt_contract_2", "tt_contract_3", "tt_contract_2q",
            "tt_contract_3q")
+# the expert-batched routes of the same four kernels (their launch keys)
+BATCHED = tuple(f"{k}_batched" for k in KERNELS)
 
 launches: collections.Counter = collections.Counter()
 
@@ -59,10 +69,11 @@ def _lib() -> ctypes.CDLL:
     lib.tt_error_string.argtypes = [_I]
     lib.tt_error_string.restype = ctypes.c_char_p
     for sfx in _SUFFIX.values():
-        getattr(lib, f"tt_contract_2_{sfx}").argtypes = [_P] * 6 + [_I] * 6 + [_P]
-        for name in (f"tt_contract_3s1_{sfx}", f"tt_contract_3s2_{sfx}"):
-            getattr(lib, name).argtypes = [_P] * 7 + [_I] * 8 + [_P]
-        for name in ("2", "3s1", "3s2"):
+        # every entry takes the expert count E first among its ints
+        getattr(lib, f"tt_contract_2b_{sfx}").argtypes = [_P] * 6 + [_I] * 7 + [_P]
+        for name in (f"tt_contract_3s1b_{sfx}", f"tt_contract_3s2b_{sfx}"):
+            getattr(lib, name).argtypes = [_P] * 7 + [_I] * 9 + [_P]
+        for name in ("2b", "3s1b", "3s2b"):
             getattr(lib, f"tt_contract_{name}_{sfx}").restype = _I
     return lib
 
@@ -91,7 +102,13 @@ def _ptr(t: Optional[torch.Tensor]):
 
 
 def _check_cuda(x, cores, scale, quantized: bool):
+    """Validate one chain (x 2-D, cores[0] 2-D) or an expert batch (x
+    (E, B, N_in), cores[0] (E, n1, r1)); returns the tail-dtype suffix."""
     dev = x.device
+    batched = x.ndim == 3
+    if batched and (cores[0].ndim != 3 or cores[0].shape[0] != x.shape[0]):
+        raise ValueError(f"x {tuple(x.shape)} and first cores "
+                         f"{tuple(cores[0].shape)} disagree on the experts")
     if x.dtype != torch.float32:
         raise TypeError(f"x must be float32, got {x.dtype}")
     if cores[0].dtype != torch.float32:
@@ -112,10 +129,12 @@ def _check_cuda(x, cores, scale, quantized: bool):
     if scale is not None and (scale.dtype != torch.float32
                               or scale.numel() != 1):
         raise TypeError("scale must be one float32 element")
-    if max(x.shape[0], *(d for g in cores for d in g.shape)) >= 2**31:
+    if max(*x.shape, *(d for g in cores for d in g.shape)) >= 2**31:
         raise ValueError("dimension too large for the kernels' int indices")
-    if _row_tiles(x.shape[0]) > 65535:
-        raise ValueError(f"batch {x.shape[0]} exceeds the kernels' grid")
+    experts, b = (x.shape[0], x.shape[1]) if batched else (1, x.shape[0])
+    if experts * _row_tiles(b) > 65535:
+        raise ValueError(f"{experts} expert(s) x batch {b} exceed the "
+                         f"kernels' grid (65,535 token tiles)")
     return _SUFFIX[tdt]
 
 
@@ -125,56 +144,74 @@ def _raise_on(code: int, name: str) -> None:
         raise RuntimeError(f"{name} launch failed: {msg} (cudaError {code})")
 
 
+def _experts(x):
+    """(E, lead shape of y) for one chain (x 2-D) or an expert batch."""
+    return (x.shape[0], x.shape[:1]) if x.ndim == 3 else (1, ())
+
+
+def _count(name: str, batched: bool) -> None:
+    launches[name] += 1
+    if batched:
+        launches[f"{name}_batched"] += 1
+
+
 def _launch_2(x, g0, g1, scale, name):
-    """g0 (n1, r1) f32; g1 (r1, n2)."""
+    """x (B, n1) or (E, B, n1); g0 (n1, r1) or (E, n1, r1) f32; g1 (r1, n2)
+    shared by the experts."""
     sfx = _check_cuda(x, [g0, g1], scale, quantized=name.endswith("q"))
-    b, n1 = x.shape
+    e, lead = _experts(x)
+    b, n1 = x.shape[-2:]
     r1, n2 = g1.shape
-    y = torch.empty((b, n2), dtype=torch.float32, device=x.device)
-    if b == 0:
+    y = torch.empty((*lead, b, n2), dtype=torch.float32, device=x.device)
+    if b == 0 or e == 0:
         return y
     kchunk, nchunk = chunk_plan(
-        n1, -(-r1 // _COL_TILE) * _row_tiles(b), min_chunk=32)
-    part = torch.empty((nchunk, b, r1), dtype=torch.float32, device=x.device)
+        n1, -(-r1 // _COL_TILE) * e * _row_tiles(b), min_chunk=32)
+    part = torch.empty((e, nchunk, b, r1), dtype=torch.float32,
+                       device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    code = getattr(_lib(), f"tt_contract_2_{sfx}")(
+    code = getattr(_lib(), f"tt_contract_2b_{sfx}")(
         x.data_ptr(), g0.data_ptr(), g1.data_ptr(), _ptr(scale),
-        part.data_ptr(), y.data_ptr(), b, n1, r1, n2, kchunk, nchunk, stream)
+        part.data_ptr(), y.data_ptr(), e, b, n1, r1, n2, kchunk, nchunk,
+        stream)
     _raise_on(code, name)
-    launches[name] += 1
+    _count(name, x.ndim == 3)
     return y
 
 
 def _launch_3(x, g0, g1, g2, scale, split, name):
-    """g0 (n1, r1) f32; g1 (r1, n2, r2); g2 (r2, n3)."""
+    """x (B, N_in) or (E, B, N_in); g0 (n1, r1) or (E, n1, r1) f32; g1
+    (r1, n2, r2) and g2 (r2, n3) shared by the experts."""
     sfx = _check_cuda(x, [g0, g1, g2], scale, quantized=name.endswith("q"))
-    b = x.shape[0]
-    n1, r1 = g0.shape
+    e, lead = _experts(x)
+    b = x.shape[-2]
+    n1, r1 = g0.shape[-2:]
     _, n2, r2 = g1.shape
     n3 = g2.shape[1]
     n_out = n2 * n3 if split == 1 else n3
-    y = torch.empty((b, n_out), dtype=torch.float32, device=x.device)
-    if b == 0:
+    y = torch.empty((*lead, b, n_out), dtype=torch.float32, device=x.device)
+    if b == 0 or e == 0:
         return y
     stream = torch.cuda.current_stream(x.device).cuda_stream
+    tiles = e * _row_tiles(b)
     if split == 1:
         chunk, nchunk = chunk_plan(
-            n1, -(-r1 // _COL_TILE) * _row_tiles(b), min_chunk=32)
-        part = torch.empty((nchunk, b, r1), dtype=torch.float32,
-                           device=x.device)
-        fn = getattr(_lib(), f"tt_contract_3s1_{sfx}")
-        dims = (b, n1, r1, n2, r2, n3)
+            n1, -(-r1 // _COL_TILE) * tiles, min_chunk=32)
+        r_part = r1
+        fn = getattr(_lib(), f"tt_contract_3s1b_{sfx}")
+        dims = (e, b, n1, r1, n2, r2, n3)
     else:
-        chunk, nchunk = chunk_plan(n2, -(-r2 // _S_TILE) * _row_tiles(b))
-        part = torch.empty((nchunk, b, r2), dtype=torch.float32,
-                           device=x.device)
-        fn = getattr(_lib(), f"tt_contract_3s2_{sfx}")
-        dims = (b, n1, n2, r1, r2, n3)
+        chunk, nchunk = chunk_plan(n2, -(-r2 // _S_TILE) * tiles)
+        r_part = r2
+        fn = getattr(_lib(), f"tt_contract_3s2b_{sfx}")
+        dims = (e, b, n1, n2, r1, r2, n3)
+    part = torch.empty((e, nchunk, b, r_part), dtype=torch.float32,
+                       device=x.device)
     code = fn(x.data_ptr(), g0.data_ptr(), g1.data_ptr(), g2.data_ptr(),
               _ptr(scale), part.data_ptr(), y.data_ptr(), *dims, chunk,
               nchunk, stream)
     _raise_on(code, name)
-    launches[name] += 1
+    _count(name, x.ndim == 3)
     return y
 
 
@@ -189,6 +226,17 @@ def tt_contract_2_plain(x, g0, g1, scale=None):
 
 def tt_contract_3_plain(x, g0, g1, g2, split: int, scale=None):
     y = tt_contract_ref(x, [g0, g1, g2.reshape(*g2.shape[:2], 1)], split)
+    return y if scale is None else y * scale.float().reshape(())
+
+
+def tt_contract_2_batched_plain(x3, g0b, g1, scale=None):
+    y = tt_contract_batched_ref(x3, g0b, [g1.reshape(*g1.shape[:2], 1)], 1)
+    return y if scale is None else y * scale.float().reshape(())
+
+
+def tt_contract_3_batched_plain(x3, g0b, g1, g2, split: int, scale=None):
+    y = tt_contract_batched_ref(
+        x3, g0b, [g1, g2.reshape(*g2.shape[:2], 1)], split)
     return y if scale is None else y * scale.float().reshape(())
 
 
@@ -227,6 +275,43 @@ def tt_contract_3q(x, g0, g1, g2, scale, split: int):
     if x.device.type == "cpu":
         return tt_contract_3_plain(x, g0, g1, g2, split, scale)
     return _launch_3(x, g0, g1, g2, scale, split, "tt_contract_3q")
+
+
+# ---------------------------------------------------------------------------
+# Their expert-batched routes: x (E, B, N_in), g0b (E, n1, r1), shared tails
+# ---------------------------------------------------------------------------
+
+def tt_contract_2_batched(x3, g0b, g1):
+    """E depth-2 chains sharing g1 (r1, n2) → (E, B, n2) f32."""
+    if x3.device.type == "cpu":
+        return tt_contract_2_batched_plain(x3, g0b, g1)
+    return _launch_2(x3, g0b, g1, None, "tt_contract_2")
+
+
+def tt_contract_2q_batched(x3, g0b, g1, scale):
+    """``tt_contract_2_batched`` with g1 int8; ``scale`` multiplies y."""
+    if x3.device.type == "cpu":
+        return tt_contract_2_batched_plain(x3, g0b, g1, scale)
+    return _launch_2(x3, g0b, g1, scale, "tt_contract_2q")
+
+
+def tt_contract_3_batched(x3, g0b, g1, g2, split: int):
+    """E depth-3 chains sharing g1 (r1, n2, r2) and g2 (r2, n3)."""
+    if split not in (1, 2):
+        raise ValueError(f"split must be 1 or 2, got {split}")
+    if x3.device.type == "cpu":
+        return tt_contract_3_batched_plain(x3, g0b, g1, g2, split)
+    return _launch_3(x3, g0b, g1, g2, None, split, "tt_contract_3")
+
+
+def tt_contract_3q_batched(x3, g0b, g1, g2, scale, split: int):
+    """``tt_contract_3_batched`` with g1 and g2 int8; ``scale``
+    multiplies y."""
+    if split not in (1, 2):
+        raise ValueError(f"split must be 1 or 2, got {split}")
+    if x3.device.type == "cpu":
+        return tt_contract_3_batched_plain(x3, g0b, g1, g2, split, scale)
+    return _launch_3(x3, g0b, g1, g2, scale, split, "tt_contract_3q")
 
 
 def _combined_scale(scales) -> Optional[torch.Tensor]:
@@ -275,9 +360,48 @@ def tt_contract(x2: torch.Tensor, cores: Sequence[torch.Tensor], split: int,
     return y if combined is None else y * combined.reshape(())
 
 
+def tt_contract_batched(x3: torch.Tensor, g0b: torch.Tensor,
+                        cores: Sequence[torch.Tensor], split: int,
+                        scales: Optional[Sequence[Optional[torch.Tensor]]]
+                        = None) -> torch.Tensor:
+    """Expert-batched chain: the whole bank in one launch per phase.
+
+    x3 (E, B, N_in) through the per-expert lead-absorbed first cores
+    ``g0b`` (E, n1, r1) and the shared tail ``cores`` → (E, B, N_out)
+    float32.  ``scales`` aligns with the tail cores (the lead's scales are
+    folded into ``g0b`` by the caller), so their product is the same for
+    every expert and multiplies the output once."""
+    depth = 1 + len(cores)
+    x3 = x3.float().contiguous()
+    g0b = g0b.float().contiguous()
+    combined = _combined_scale(scales)
+    if combined is not None:
+        combined = combined.reshape(1).contiguous()
+    if depth == 2 and split == 1:
+        g1 = cores[0]
+        g1m = (g1[:, :, 0] if g1.ndim == 3 else g1).contiguous()
+        if combined is not None:
+            return tt_contract_2q_batched(x3, g0b, g1m, combined)
+        return tt_contract_2_batched(x3, g0b, g1m)
+    if depth == 3 and split in (1, 2):
+        g1 = cores[0].contiguous()
+        g2 = cores[1]
+        g2m = (g2[:, :, 0] if g2.ndim == 3 else g2).contiguous()
+        if combined is not None:
+            return tt_contract_3q_batched(x3, g0b, g1, g2m, combined, split)
+        return tt_contract_3_batched(x3, g0b, g1, g2m, split)
+    launches["plain_chains"] += 1
+    y = tt_contract_batched_ref(x3, g0b, cores, split)
+    return y if combined is None else y * combined.reshape(())
+
+
 __all__ = [
-    "KERNELS", "build", "chunk_plan", "launches", "reset_launches",
-    "tt_contract", "tt_contract_2", "tt_contract_2q", "tt_contract_3",
-    "tt_contract_3q", "tt_contract_2_plain", "tt_contract_3_plain",
+    "BATCHED", "KERNELS", "build", "chunk_plan", "launches",
+    "reset_launches", "tt_contract", "tt_contract_2", "tt_contract_2q",
+    "tt_contract_3", "tt_contract_3q", "tt_contract_2_plain",
+    "tt_contract_3_plain", "tt_contract_batched", "tt_contract_2_batched",
+    "tt_contract_2q_batched", "tt_contract_3_batched",
+    "tt_contract_3q_batched", "tt_contract_2_batched_plain",
+    "tt_contract_3_batched_plain", "tt_contract_batched_ref",
     "tt_contract_ref", "tt_dense_ref", "tt_dequant_chain",
 ]

@@ -36,6 +36,32 @@ def tt_contract_ref(x2: torch.Tensor, cores: Sequence[torch.Tensor],
     return t.reshape(b, -1)
 
 
+def tt_contract_batched_ref(x3: torch.Tensor, g0b: torch.Tensor,
+                            cores: Sequence[torch.Tensor],
+                            split: int) -> torch.Tensor:
+    """Expert-batched chain: y[e] = x[e] · W[e], where the experts differ
+    only in their lead-absorbed first core ``g0b`` (E, n1, r1) and share
+    the tail ``cores``.  (E, B, N_in) → (E, B, N_out) float32; one einsum
+    chain with a leading expert axis, in ``tt_contract_ref``'s order."""
+    if not 1 <= split <= 1 + len(cores):
+        raise ValueError(f"split {split} outside 1..{1 + len(cores)}")
+    e, b, _ = x3.shape
+    if g0b.ndim != 3 or g0b.shape[0] != e:
+        raise ValueError(f"g0b must be (E={e}, n1, r1), got "
+                         f"{tuple(g0b.shape)}")
+    t = x3.float().reshape(e, b, g0b.shape[1], -1)
+    t = torch.einsum("ebnm,ens->ebms", t, g0b.float())
+    for g in cores[: split - 1]:
+        r = g.shape[0]
+        t = t.reshape(e, b, g.shape[1], -1, r)
+        t = torch.einsum("ebnmr,rns->ebms", t, g.float())
+    t = t.reshape(e, b, 1, -1)
+    for g in cores[split - 1:]:
+        t = torch.einsum("ebmr,rns->ebmns", t, g.float())
+        t = t.reshape(e, b, -1, g.shape[2])
+    return t.reshape(e, b, -1)
+
+
 def tt_dequant_chain(cores: Sequence[torch.Tensor],
                      scales: Sequence[Optional[torch.Tensor]]):
     """Each core widened to f32 and multiplied by its scale (``None`` = the

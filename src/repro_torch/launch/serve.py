@@ -4,8 +4,9 @@
         --arch qwen1.5-0.5b --weights tt --batch 4 --prompt-len 16 --gen 16
 
 ``--arch`` is any ported config (``repro_torch.configs.NAME_TO_MODULE``:
-qwen1.5-0.5b of the dense family, recurrentgemma-2b of the hybrid family);
-every family serves through the same ``Model`` API.
+qwen1.5-0.5b of the dense family, olmoe-1b-7b of the MoE family,
+recurrentgemma-2b of the hybrid family); every family serves through the
+same ``Model`` API.
 
 Runs on the first CUDA card unless ``--device cpu`` is given.  With
 ``--weights tt`` the weights (random from ``--seed``, given a power-law
@@ -13,7 +14,9 @@ spectrum as trained weights have) are TT-compressed on the device (paper
 Algorithm 1 on the default batched plan, as the reference's serve does),
 converted to TT-native params, and decode contracts activations straight
 through the cores with the hand-written kernels — the dense matrices are
-never rebuilt.  ``--weights tt-int8`` stores the cores as int8.
+never rebuilt.  An MoE expert bank serves as one expert-batched chain per
+layer (``tt_apply_experts``).  ``--weights tt-int8`` stores the cores as
+int8.
 ``--verify`` (default on) reruns the batch on the reconstructed dense
 weights and reports logit parity; for int8 it reports tie-tolerant
 next-token agreement over every teacher-forced prompt position.
@@ -77,13 +80,14 @@ def tie_tolerant_agreement(tf_q: np.ndarray, tf_ref: np.ndarray) -> float:
     return float(np.mean(deficit <= tol))
 
 
-def _tt_setup(params, args, cfg):
-    """Compress on the params' device and build the TT-native params.
-
-    Returns (params_tt, payload, info, the dense params compressed)."""
-    quant = _quant_of(args.weights)
+def _compress(model, args):
+    """Random weights from ``args.seed`` with the spectral decay, compressed
+    on the model's device; the random init is dropped once its decayed copy
+    exists.  Returns (the dense params compressed, payload, report,
+    seconds)."""
     comp = _comp.TTCompressor(_comp.CompressionPolicy(
         eps=args.tt_eps, min_size=8192))
+    params = model.init(args.seed)
     dev = params.embed.device
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
@@ -92,9 +96,20 @@ def _tt_setup(params, args, cfg):
     payload, report = comp.compress(params)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
-    compress_s = time.perf_counter() - t0
+    return params, payload, report, time.perf_counter() - t0
+
+
+def _tt_setup(model, args, cfg, compressed=None):
+    """The compression (``_compress``, or ``compressed``: its result from
+    an earlier run of the same weights) and the TT-native params.
+
+    Returns (params_tt, payload, info, the dense params compressed)."""
+    quant = _quant_of(args.weights)
+    params, payload, report, compress_s = compressed or _compress(model,
+                                                                   args)
     params_tt = model_common.tt_native_params(payload, family=cfg.family)
     info = {
+        "compressed": (params, payload, report, compress_s),
         "compress_s": compress_s,
         "payload_ratio": report.ratio,
         "plan_fingerprint": report.plan_fingerprint,
@@ -104,10 +119,18 @@ def _tt_setup(params, args, cfg):
         "dense_bytes": _dense_bytes(payload),
         "tt_bytes": _ttl.tt_param_bytes(params_tt),
     }
+    tt_leaves = [(path, leaf) for path, leaf in _tree.leaves_with_paths(
+        params_tt, is_leaf=_ttl.is_tt_linear) if _ttl.is_tt_linear(leaf)]
+    # (split, core shapes, experts or None) of every TT-served weight
     info["chains"] = {
-        path: (leaf.split, [tuple(c.shape) for c in leaf.cores])
-        for path, leaf in _tree.leaves_with_paths(
-            params_tt, is_leaf=_ttl.is_tt_linear) if _ttl.is_tt_linear(leaf)}
+        path: (leaf.split, [tuple(c.shape) for c in leaf.cores],
+               leaf.experts) for path, leaf in tt_leaves}
+    # an expert bank's apply materializes its lead-absorbed first cores,
+    # float32 (E, n1, r1), on every call (a plain einsum, as the reference's)
+    info["absorbed_bytes"] = {
+        path: 4 * leaf.experts * int(leaf.cores[0].shape[1])
+        * int(leaf.cores[0].shape[2]) for path, leaf in tt_leaves
+        if leaf.experts}
     wide_leaf_b, dense_leaf_b = _ttl.tt_leaf_bytes(params_tt)
     info.update(tt_leaf_bytes=wide_leaf_b, dense_leaf_bytes=dense_leaf_b)
     line = (f"weight bytes: dense {info['dense_bytes']:,} -> tt-native "
@@ -120,15 +143,21 @@ def _tt_setup(params, args, cfg):
         line += (f" -> tt-{quant} {info['ttq_bytes']:,}; TT-served leaves "
                  f"{wide_leaf_b:,} -> {info['ttq_leaf_bytes']:,} "
                  f"(dense form {dense_leaf_b:,})")
+    if info["absorbed_bytes"]:
+        line += ("; expert banks' lead-absorbed first cores per call "
+                 "(float32): " + ", ".join(
+                     f"{p} {n:,} B" for p, n in info["absorbed_bytes"].items()))
     info["line"] = line
     return params_tt, payload, info, params
 
 
-def serve(args) -> dict:
+def serve(args, compressed=None) -> dict:
     """Run one batch; returns tok/s, the tokens, the run, the verify
     numbers and the setup info, plus the model, the served params, the
     dense params they came from, the payload and the prompts for further
-    checks."""
+    checks.  ``compressed``: ``info["compressed"]`` of an earlier run with
+    the same ``--arch``, ``--seed``, ``--tt-eps`` and ``--tt-alpha``, whose
+    compression this run reuses (``compress_s`` is then that run's)."""
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
@@ -137,10 +166,12 @@ def serve(args) -> dict:
     b = args.batch
     max_len = args.prompt_len + args.gen
 
-    params = dense = model.init(args.seed)
     payload, info = None, {}
-    if args.weights != "dense":
-        params, payload, info, dense = _tt_setup(params, args, cfg)
+    if args.weights == "dense":
+        params = dense = model.init(args.seed)
+    else:
+        params, payload, info, dense = _tt_setup(model, args, cfg,
+                                                 compressed)
         print(f"[serve] compressed on {model.device} in "
               f"{info['compress_s']:.3f}s; TT ranks "
               + ", ".join(f"{k} {v}" for k, v in info["ranks"].items()))

@@ -3,8 +3,9 @@
 Port of the serving subset of the JAX package's ``models/common.py``:
 
   * building blocks — ``rms_norm``, ``apply_rope``, ``activate``,
-    initializers, ``unembed``, ``cross_entropy_loss``, and ``dense_apply``,
-    the one raw-vs-TT weight dispatch point every projection goes through;
+    initializers, ``unembed``, ``cross_entropy_loss``, and ``dense_apply``
+    / ``expert_apply``, the raw-vs-TT weight dispatch points every
+    projection and every expert bank goes through;
   * TT-native serving — the per-family rule registry and
     ``tt_native_params``, plus ``layer_at`` (a layer's view of stacked
     params: TT leaves select their lead row, cores stay shared);
@@ -78,16 +79,31 @@ def dense_apply(x: torch.Tensor, w, in_ndim: int = 1) -> torch.Tensor:
     return torch.tensordot(x.to(dt), w.to(dt), dims=in_ndim)
 
 
+def expert_apply(x: torch.Tensor, w) -> torch.Tensor:
+    """Expert-banked weight application: x (E, C, IN) against w
+    (E, IN, OUT), the MoE FFN's batched matmul.  A raw bank is one
+    einsum (as the reference's, outside any kernel); an expert-axis
+    ``TTLinear`` runs the whole bank as one expert-batched chain
+    (``tt_apply_experts``)."""
+    if _ttl.is_tt_linear(w):
+        return _ttl.tt_apply_experts(x, w)
+    dt = torch.promote_types(x.dtype, w.dtype)
+    return torch.einsum("eci,eio->eco", x.to(dt), w.to(dt))
+
+
 # ---------------------------------------------------------------------------
 # TT-native serving: per-family rule registry
 # ---------------------------------------------------------------------------
 
 class TTServeRule(NamedTuple):
     """One eligible-weight pattern: regex over the dot path of the weight,
-    the matmul input axes after the stack axes, and the stack axes."""
+    the matmul input axes after the stack axes, the stack axes, and how
+    many trailing stack axes form an expert bank (kept as a batch axis at
+    apply time and served by the expert-batched chain)."""
     pattern: "re.Pattern[str]"
     in_ndim: int
     stack: int = 1
+    experts: int = 0
 
 
 _TT_SERVE_REGISTRY: dict = {}
@@ -148,7 +164,8 @@ def tt_native_params(compressed, core_dtype=None, family: Optional[str] = None,
                         c.tt, c.orig_shape, stack=rule.stack,
                         in_ndim=rule.in_ndim, dtype=c.orig_dtype,
                         core_dtype=(c.orig_dtype if core_dtype is None
-                                    else core_dtype))
+                                    else core_dtype),
+                        experts=rule.experts)
                     break
         if leaf is None:
             return _comp.decompress_param(c) if _comp.is_compressed_param(c) else c

@@ -6,8 +6,8 @@
   init_cache(batch, max_len) -> cache
   decode_step(params, cache, tokens) -> (logits, cache)
 
-for the dense family (decode only: its ``forward`` is a later slice) and
-the hybrid family (all five).  ``impl`` is the reference's: ``"xla"`` runs
+for the dense and MoE families (decode only: their ``forward`` is a later
+slice) and the hybrid family (all five).  ``impl`` is the reference's: ``"xla"`` runs
 the plain attention path, ``"pallas"`` the hand-written flash kernel.
 """
 
@@ -38,8 +38,8 @@ class Model:
 def _build_transformer(cfg: ModelConfig, device: torch.device) -> Model:
     def not_ported(*_args, **_kwargs):
         raise NotImplementedError(
-            "the dense family's forward (prefill and loss) is not ported "
-            "yet (ROADMAP queue 1, item 7)")
+            f"the {cfg.family} family's forward (prefill and loss) is not "
+            f"ported yet (ROADMAP queue 1, item 7)")
 
     return Model(
         cfg=cfg, device=device,
@@ -67,7 +67,8 @@ def _build_griffin(cfg: ModelConfig, device: torch.device) -> Model:
     )
 
 
-_BUILDERS = {"dense": _build_transformer, "hybrid": _build_griffin}
+_BUILDERS = {"dense": _build_transformer, "moe": _build_transformer,
+             "hybrid": _build_griffin}
 
 
 def build(cfg: ModelConfig, device=None) -> Model:

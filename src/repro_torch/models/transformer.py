@@ -1,8 +1,10 @@
-"""Decoder-only transformer LM, dense family: init, KV cache, and the
-single-token ``decode_step`` — port of the JAX ``models/transformer.py``
-serving path.  Layers run as a Python loop over the stacked params
-(``common.layer_at``): TT leaves select their lead row, and their cores
-stay shared by every layer.
+"""Decoder-only transformer LM, dense and MoE families: init, KV cache,
+and the single-token ``decode_step`` — port of the JAX
+``models/transformer.py`` serving path.  A layer's FFN is the gated MLP
+(dense) or the MoE block (``cfg.moe`` set).  Layers run as a Python loop
+over the stacked params (``common.layer_at``): TT leaves select their lead
+row (an expert bank its (E, r_s) lead block), and their cores stay shared
+by every layer.
 """
 
 from __future__ import annotations
@@ -19,7 +21,8 @@ from repro_torch.models import mlp as mlp_mod
 
 class LayerParams(NamedTuple):
     attn: attn.AttnParams
-    mlp: mlp_mod.MLPParams
+    mlp: Optional[mlp_mod.MLPParams]      # dense family
+    moe: Optional[mlp_mod.MoEParams]      # MoE family
     ln1: torch.Tensor
     ln2: torch.Tensor
 
@@ -39,7 +42,8 @@ def init(seed: int, cfg, device) -> TransformerParams:
     dt = torch_dtype(cfg.dtype)
     layers = LayerParams(
         attn=attn.init_attn(gen, cfg, l, device),
-        mlp=mlp_mod.init_mlp(gen, cfg, l, device),
+        mlp=None if cfg.moe else mlp_mod.init_mlp(gen, cfg, l, device),
+        moe=mlp_mod.init_moe(gen, cfg, l, device) if cfg.moe else None,
         ln1=torch.zeros((l, cfg.d_model), dtype=dt, device=device),
         ln2=torch.zeros((l, cfg.d_model), dtype=dt, device=device),
     )
@@ -102,16 +106,26 @@ def decode_step(params: TransformerParams, cache: DecodeCache,
                                is_global=is_global)
         x = x + common.dense_apply(o, lp.attn.wo, in_ndim=2)
         hh = common.rms_norm(x, lp.ln2, cfg.norm_eps)
-        x = (x + mlp_mod.mlp_apply(hh, lp.mlp, cfg.act)).to(x.dtype)
+        if cfg.moe is not None:
+            f = mlp_mod.moe_apply(hh, lp.moe, cfg)
+        else:
+            f = mlp_mod.mlp_apply(hh, lp.mlp, cfg.act)
+        x = (x + f).to(x.dtype)
     hidden = common.rms_norm(x, params.final_norm, cfg.norm_eps)
     logits = logits_fn(params, hidden, cfg)
     return logits[:, 0, :], DecodeCache(k=cache.k, v=cache.v, pos=pos + 1)
 
 
-# TT-native serving rules (registered beside the model, per family)
+# TT-native serving rules (registered beside the model, per family).  MoE
+# expert banks (L, E, D, F) use stack=2, experts=1: both leading axes fold
+# into the lead table, the expert mode stays a batch axis, served by the
+# expert-batched chain through ``common.expert_apply``.
 _TT_RULES = [
     common.TTServeRule(r"^layers\.attn\.w[qkv]$", in_ndim=1),
     common.TTServeRule(r"^layers\.attn\.wo$", in_ndim=2),
     common.TTServeRule(r"^layers\.mlp\.w_(gate|up|down)$", in_ndim=1),
+    common.TTServeRule(r"^layers\.moe\.w_(gate|up|down)$", in_ndim=1,
+                       stack=2, experts=1),
 ]
-common.register_tt_serve_rules("dense", _TT_RULES)
+for _fam in ("dense", "moe"):
+    common.register_tt_serve_rules(_fam, _TT_RULES)

@@ -8,6 +8,12 @@ import jax
 
 from repro.models.common import _path_str
 
+# The suite runs in several worker processes on one host.  One intra-op
+# thread per worker keeps the port's many small CPU ops (the HBD step loop,
+# per-token decode) from spinning on oversubscribed thread pools, where a
+# one-second serve test took minutes.
+torch.set_num_threads(1)
+
 
 def f32_cfg(cfg):
     """Reduced config in float32 (parity tests run f32, TF32 off)."""

@@ -31,7 +31,7 @@ def test_port_files_exist():
     assert {"chip_smoke.py", "ops.py", "serve.py", "hbd.py", "blocked.py",
             "plan.py", "batch_exec.py", "resnet32.py",
             "engine_cases.py", "rglru.py", "steps.py",
-            "recurrentgemma_2b.py"} <= names
+            "recurrentgemma_2b.py", "olmoe_1b_7b.py", "mlp.py"} <= names
     kernels = REPO / "src" / "repro_torch" / "kernels"
     for name in ("tt_contract", "householder", "block_update",
                  "singular_sort", "frob_truncate", "flash_attention"):

@@ -2,7 +2,10 @@
 
 * The four chain kernels (max|Δ| <= 2e-4·max|ref|), at full-width
   qwen1.5-0.5b chain shapes and ragged small ones, B in {1, 4, 64}, with
-  float32, bfloat16 and int8 tail cores.
+  float32, bfloat16 and int8 tail cores; and their expert-batched routes
+  (the same bound) at olmoe-1b-7b's bank shapes, synthetic depth-3 and
+  ragged chains, 64 experts of 1, 4 or 64 tokens and 3 experts of 9, each
+  launch counted under its route.
 * The TTD-engine kernels (panel factor, WY passes, sort, truncation; the
   case table of ``kernels/engine_cases.py``, shared with ``chip_smoke.py``)
   at full-width shapes, ResNet-32's batched shapes, ragged shapes and
@@ -62,6 +65,45 @@ def test_kernels_match_plain_on_card(cuda_device, kind, shape, batch):
         torch.cuda.synchronize()
         err = float((got - ref).abs().max())
         assert err <= 2e-4 * float(ref.abs().max()), (name, dtype, err)
+
+
+BATCHED_SHAPES = [(kind, shape) for kind, shapes in
+                  cases.BATCHED_SHAPES.items() for shape in shapes]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,shape", BATCHED_SHAPES)
+@pytest.mark.parametrize("e,c", cases.BATCHED_EC)
+def test_batched_kernels_match_plain_on_card(cuda_device, kind, shape, e, c):
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    for dtype in cases.TAIL_DTYPES:
+        name, kernel, plain, _ = cases.batched_case(kind, shape, e, c, dtype,
+                                                    gen, cuda_device)
+        ops.reset_launches()
+        got = kernel()
+        counts = dict(ops.launches)
+        ref = plain()
+        torch.cuda.synchronize()
+        assert counts == {name: 1, name[:-len("_batched")]: 1}, counts
+        err = float((got - ref).abs().max())
+        assert err <= 2e-4 * float(ref.abs().max()), (name, dtype, err)
+
+
+@pytest.mark.cuda
+def test_batched_checks(cuda_device):
+    x = torch.randn(3, 4, 64, device=cuda_device)
+    g0 = torch.randn(3, 64, 8, device=cuda_device)
+    g1 = torch.randn(8, 32, device=cuda_device)
+    with pytest.raises(ValueError, match="experts"):
+        ops.tt_contract_2_batched(x, g0[:2].contiguous(), g1)
+    big = torch.zeros(65536, 1, 64, device=cuda_device)
+    with pytest.raises(ValueError, match="grid"):
+        ops.tt_contract_2_batched(big, torch.zeros(65536, 64, 8,
+                                                   device=cuda_device), g1)
+    ops.reset_launches()
+    y = ops.tt_contract_batched(x, g0, [g1[:, :, None]], 1)
+    assert y.shape == (3, 4, 32) and ops.launches["tt_contract_2_batched"] == 1
+    ops.reset_launches()
 
 
 @pytest.mark.cuda

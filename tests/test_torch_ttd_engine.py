@@ -23,9 +23,20 @@ rounding, and the two packages' factors differ by up to about 3e-4·max on
 random inputs even where the QR factors they start from agree to 1e-6 (the
 slice-1 unblocked HBD on dense inputs spreads the same way); their
 invariants are held tightly (U_B B V_Bᵀ = A at 1e-5, σ(B) = σ(A) at 1e-5).
+That gap is rounding, not a difference of algorithm: run in float64 on the
+same tall inputs (512 × 64, 2048 × 32), the two packages' unblocked HBDs
+agree to 2.5e-13·max (bound here 1e-10), while either one in float32 is up
+to 1.4e-4·max off the float64 factors.  The reference casts to float32
+inside, so its side runs in a subprocess with ``jax_enable_x64`` and the
+module's ``jnp.float32`` read as float64: its code unchanged, and the
+other tests keep float32.
 """
 
 import importlib
+import os
+import subprocess
+import sys
+import textwrap
 
 import jax.numpy as jnp
 import numpy as np
@@ -38,6 +49,7 @@ from repro.kernels.frob_truncate import ops as jax_ft
 from repro.kernels.householder import ops as jax_hh
 from repro.kernels.singular_sort import ops as jax_ss
 from repro_torch.core import blocked
+from repro_torch.core.hbd import householder_bidiagonalize
 from repro_torch.kernels.block_update import ops as wy
 from repro_torch.kernels.frob_truncate import ops as ft
 from repro_torch.kernels.householder import ops as hh
@@ -239,6 +251,62 @@ def test_qr_blocked_matches_jax(rng, m, n, p):
     assert_close_scaled(qb[0], q, 1e-5)
     assert_close_scaled(rb[1], jax_blocked.blocked_qr(
         jnp.asarray(a[::-1].copy()), panel=p)[1], 1e-4)
+
+
+HBD_F64_SHAPES = [(512, 64), (2048, 32)]
+_JAX_HBD_F64 = textwrap.dedent("""
+    import sys, types
+    import numpy as np
+    import jax
+    jax.config.update("jax_enable_x64", True)
+    import jax.numpy as jnp
+    from repro.core import hbd
+
+    class F64(types.ModuleType):
+        # jax.numpy with float32 read as float64
+        def __getattr__(self, name):
+            return jnp.float64 if name == "float32" else getattr(jnp, name)
+
+    hbd.jnp = F64("jnp_f64")
+    data = np.load(sys.argv[1])
+    out = {}
+    for key in data.files:
+        u, b, vt = hbd.householder_bidiagonalize(jnp.asarray(data[key]))
+        assert u.dtype == jnp.float64 and b.dtype == jnp.float64
+        out[key + ".u"], out[key + ".b"], out[key + ".vt"] = (
+            np.asarray(u), np.asarray(b), np.asarray(vt))
+    np.savez(sys.argv[2], **out)
+""")
+
+
+@pytest.fixture(scope="module")
+def hbd_f64(tmp_path_factory):
+    """Tall float64 inputs and the reference's HBD of each in float64."""
+    rng = np.random.default_rng(0)
+    inputs = {f"{m}x{n}": rng.standard_normal((m, n))
+              for m, n in HBD_F64_SHAPES}
+    tmp = tmp_path_factory.mktemp("hbd_f64")
+    np.savez(tmp / "in.npz", **inputs)
+    src = os.path.join(os.path.dirname(__file__), "..", "src")
+    env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=os.pathsep.join(
+        [src] + os.environ.get("PYTHONPATH", "").split(os.pathsep)))
+    subprocess.run([sys.executable, "-c", _JAX_HBD_F64, str(tmp / "in.npz"),
+                    str(tmp / "out.npz")], env=env, check=True, timeout=120)
+    return inputs, dict(np.load(tmp / "out.npz"))
+
+
+@pytest.mark.parametrize("shape", HBD_F64_SHAPES, ids=str)
+def test_hbd_float64_matches_jax_to_rounding(hbd_f64, shape):
+    """Same algorithm: in float64 the factors agree to rounding."""
+    inputs, ref = hbd_f64
+    key = f"{shape[0]}x{shape[1]}"
+    n = shape[1]
+    u, b, vt = householder_bidiagonalize(torch.from_numpy(inputs[key]))
+    assert u.dtype == torch.float64
+    for got, want in ((u, ref[key + ".u"][:, :n]), (b, ref[key + ".b"][:n]),
+                      (vt, ref[key + ".vt"])):
+        scale = np.abs(want).max()
+        assert np.abs(got.numpy() - want).max() <= 1e-10 * scale
 
 
 @pytest.mark.parametrize("shape", [(120, 40), (40, 33), (96, 24)])

@@ -36,7 +36,7 @@ def main() -> None:
                                  "--weights", "tt"])
     cfg = get_config(args.arch)
     model = build(cfg)
-    params_tt, payload, _, _ = serve_mod._tt_setup(model.init(0), args, cfg)
+    params_tt, payload, _, _ = serve_mod._tt_setup(model, args, cfg)
     prompts = np.random.default_rng(0).integers(
         0, cfg.vocab_size, (4, 16), dtype=np.int32)
     rx = comp.TTCompressor().decompress(payload)
