@@ -35,23 +35,34 @@
    truncation; ``kernels/{householder,block_update,singular_sort,
    frob_truncate}``):
    a. full-width qwen1.5-0.5b, the main path's weights, compressed with
-      the TT-Edge policy (``hbd_impl="blocked"``) on the batched plan:
-      plan, seconds, ranks beside the main path's (each within one), every
-      TT leaf within ε, TT-native vs reconstruct-then-serve in float32 at
-      1e-4 of scale, and the single-panel, WY, sort and truncation kernels
-      launched with no plain call; then where the time goes, for both HBD
-      impls (host timers around each phase, synchronized);
+      the TT-Edge policy (``hbd_impl="blocked"``) on the batched plan,
+      under ``torch.profiler`` (device time by kernel, each engine
+      kernel's and WY pass 1's share): plan, seconds, ranks beside the main
+      path's (each within one), every TT leaf within ε, TT-native vs
+      reconstruct-then-serve in float32 at 1e-4 of scale, and the
+      single-panel, WY (pass 1 on its 16-byte copy route), sort and
+      truncation kernels launched with no plain call; then where the time
+      goes, for both HBD impls (host timers around each phase,
+      synchronized);
    b. ResNet-32 (``configs/resnet32.py``, seed 0, α 1.0, eps 0.2), blocked,
       batched plan: 4 bucket passes and no serial member, every TT leaf
       within ε, ranks and payload equal to a ``plan="serial"`` run, and
       the batched kernels launched;
    c. each engine kernel against its plain version at the shapes those
-      two runs gave it (printed), ragged shapes and panels on either side
-      of the shared-memory limit (``kernels/engine_cases.py``): 2e-4 *
-      max|ref|, sorted σ, index vectors and ranks exactly equal; the
-      blocked SVD of wq's 24,576 x 1,024 unfolding against
-      ``torch.linalg.svd`` in float64 (max|Δσ| <= 1e-4 σ_max); times of kernel,
-      plain version and library call (geqrf, matmul, baddbmm, sort).
+      two runs gave it (printed; the WY views 16-byte aligned, as blocked
+      QR's), ragged shapes (the WY views misaligned: pass 1's 4-byte copy
+      route) and panels on either side of the shared-memory limit
+      (``kernels/engine_cases.py``): 2e-4 * max|ref|, sorted σ, index
+      vectors and ranks exactly equal; WY pass 1 also on integer inputs in
+      {-1, 0, 1} at each of those shapes (and the ragged ones aligned too),
+      equal bit for bit to the float64 product, and twice on the same random
+      inputs, equal; its ptxas registers and spills, its layout (stages,
+      tile, blocks per SM from CUDA's occupancy calculator, which must match
+      ``ops.chunk_plan``'s) and the copies in flight per SM; the blocked
+      SVD (phase 2 in float64) of wq's 24,576 x 1,024 unfolding against
+      ``torch.linalg.svd`` in float64 (max|Δσ| <= 1e-4 σ_max); times of
+      kernel, plain version and library call (geqrf, matmul, baddbmm,
+      sort).
 5. Hybrid phase (``models/rglru.py``, ``kernels/flash_attention``):
    a. the main path ``serve --arch recurrentgemma-2b --weights tt`` at full
       width and depth (26 layers, d_model 2560, 10 Q heads and 1 KV head x
@@ -117,7 +128,6 @@ import dataclasses
 import json
 import math
 import re
-import statistics
 import subprocess
 import sys
 import time
@@ -125,9 +135,12 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
+sys.path.insert(0, str(ROOT / "tools"))
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
+
+from cuda_timing import PhaseTimers, kernel_ms, time_ms  # noqa: E402
 
 # H100 SXM published peaks (NVIDIA data sheet, 700 W): HBM bytes/s and f32
 # FLOP/s outside the tensor cores (the kernels' FFMA path)
@@ -161,23 +174,6 @@ def check(ok: bool, msg: str) -> None:
     if not ok:
         print(f"[chip_smoke] FAIL: {msg}")
         FAILURES.append(msg)
-
-
-def time_ms(fn, reps: int = 30) -> float:
-    """Median time of ``fn()`` on the card, CUDA events around each call."""
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
 
 
 # ---------------------------------------------------------------------------
@@ -513,61 +509,6 @@ def eps_gate(params, payload, what: str) -> float:
     return worst
 
 
-class PhaseTimers:
-    """Host seconds of each compression phase, synchronized at the phase
-    boundaries: the spectral decay of the synthetic weights (where the run
-    makes them), the HBD (unblocked loop, or blocked QR + HBD of R), the
-    sort, the truncation, the whole SVD (phase 2 = SVD - HBD - sort), by
-    wrapping the functions the compression path calls for one run."""
-
-    def __init__(self):
-        import importlib
-        blocked, svd, truncation, tt, tt_linear = (
-            importlib.import_module(f"repro_torch.core.{m}")
-            for m in ("blocked", "svd", "truncation", "tt", "tt_linear"))
-        self.sec = {"hbd": 0.0, "sort": 0.0, "truncate": 0.0, "svd": 0.0,
-                    "decay": 0.0}
-        self.targets = [
-            (svd, "householder_bidiagonalize", "hbd"),
-            (svd, "householder_bidiagonalize_batched", "hbd"),
-            (blocked, "blocked_bidiagonalize", "hbd"),
-            (blocked, "blocked_bidiagonalize_batched", "hbd"),
-            (svd, "sorting_basis", "sort"),
-            (truncation, "truncation_rank", "truncate"),
-            (truncation, "truncate_masked", "truncate"),
-            (tt, "_svd_fn", "svd"), (tt, "_svd_batched", "svd"),
-            (tt_linear, "spectral_decay_pytree", "decay")]
-        self.saved = []
-
-    def _wrap(self, fn, key):
-        def timed(*a, **k):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = fn(*a, **k)
-            torch.cuda.synchronize()
-            self.sec[key] += time.perf_counter() - t0
-            return out
-        return timed
-
-    def __enter__(self):
-        for mod, name, key in self.targets:
-            fn = getattr(mod, name)
-            self.saved.append((mod, name, fn))
-            setattr(mod, name, self._wrap(fn, key))
-        return self
-
-    def __exit__(self, *exc):
-        for mod, name, fn in self.saved:
-            setattr(mod, name, fn)
-
-    def breakdown(self, total: float) -> dict:
-        s = self.sec
-        return {"total_s": total, "decay_s": s["decay"], "hbd_s": s["hbd"],
-                "diag_s": s["svd"] - s["hbd"] - s["sort"], "sort_s": s["sort"],
-                "truncate_s": s["truncate"],
-                "rest_s": total - s["svd"] - s["truncate"] - s["decay"]}
-
-
 def compress_timed(params, policy, plan=None, timers=False):
     """(payload, report, seconds), optionally with the phase breakdown."""
     from repro_torch.core import compression as comp
@@ -583,6 +524,36 @@ def compress_timed(params, policy, plan=None, timers=False):
     payload, report = comp.TTCompressor(policy).compress(params, plan)
     torch.cuda.synchronize()
     return payload, report, time.perf_counter() - t0, None
+
+
+# the engine kernels by the names of their CUDA functions
+ENGINE_KERNELS = {"wy pass 1": ("vta_partial_kernel", "vta_reduce_kernel"),
+                  "wy pass 2": ("wy_apply_kernel",),
+                  "panel factor": ("panel_",),
+                  "sort": ("bitonic_sort_kernel",),
+                  "truncate": ("frob_truncate_kernel",)}
+
+
+def device_profile(prof, wall_s: float) -> dict:
+    """Device ms by kernel of a ``torch.profiler`` run (CUDA activity):
+    the engine kernels' ms and share of the device's busy time, and the top
+    other kernels."""
+    by_name = kernel_ms(prof)
+    busy = sum(ms for ms, _ in by_name.values())
+    engine = {}
+    for label, keys in ENGINE_KERNELS.items():
+        hit = [v for k, v in by_name.items() if any(x in k for x in keys)]
+        ms = sum(v[0] for v in hit)
+        engine[label] = {"ms": ms, "launches": sum(v[1] for v in hit),
+                         "share": ms / busy if busy else 0.0}
+    engine_names = [k for k in by_name if any(
+        x in k for keys in ENGINE_KERNELS.values() for x in keys)]
+    rest = sorted(((k, v) for k, v in by_name.items()
+                   if k not in engine_names), key=lambda kv: -kv[1][0])
+    return {"wall_s": wall_s, "device_busy_ms": busy,
+            "launches": sum(n for _, n in by_name.values()),
+            "engine": engine,
+            "top_other": [[k[:70], n, ms] for k, (ms, n) in rest[:8]]}
 
 
 def engine_fullwidth(serve_mod, main_tt: dict) -> dict:
@@ -605,14 +576,31 @@ def engine_fullwidth(serve_mod, main_tt: dict) -> dict:
     plan = plan_mod.build_plan(params, policy)
     print(f"[chip_smoke] engine, full width, blocked policy:\n"
           f"{plan.describe()}")
+    from torch.profiler import ProfilerActivity, profile
     reset_counts()
-    payload, report, secs, _ = compress_timed(params, policy)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        payload, report, secs, _ = compress_timed(params, policy)
     counts = read_counts()
     reset_counts()
+    t0 = time.perf_counter()
+    dprof = device_profile(prof, secs)
+    del prof
+    p1 = dprof["engine"]["wy pass 1"]
+    print(f"[chip_smoke] engine, full width, blocked compression under "
+          f"torch.profiler: wall {secs:.3f}s, device busy "
+          f"{dprof['device_busy_ms']:.1f} ms in {dprof['launches']} "
+          f"launches; WY pass 1 {p1['ms']:.2f} ms ({p1['share']:.2%} of "
+          f"the device's busy time, {p1['launches']} launches incl. the "
+          f"fixed-order sum); engine kernels [ms, launches, share] "
+          f"{json.dumps({k: [v['ms'], v['launches'], v['share']] for k, v in dprof['engine'].items()})}; "
+          f"top other kernels [name, launches, ms] "
+          f"{json.dumps(dprof['top_other'])} (read in "
+          f"{time.perf_counter() - t0:.1f}s)")
     ranks = {p: c.tt.ranks for p, c in tt_leaves(payload).items()}
     main_ranks = main_tt["info"]["ranks"]
     print(f"[chip_smoke] engine, full width: compressed in {secs:.3f}s "
-          f"(blocked); main path {main_tt['info']['compress_s']:.3f}s "
+          f"(blocked, under the profiler); main path "
+          f"{main_tt['info']['compress_s']:.3f}s "
           f"(unblocked, incl. the spectral decay, which takes "
           f"{decay_s:.3f}s); payload ratio {report.ratio:.3f}")
     check(set(ranks) == set(main_ranks),
@@ -627,8 +615,8 @@ def engine_fullwidth(serve_mod, main_tt: dict) -> dict:
     eps_worst = eps_gate(params, payload, "engine, full width")
     oracle = f32_oracle(serve_mod, {"model": model, "payload": payload,
                                     "prompts": main_tt["prompts"]})
-    for k in ("panel_factor", "wy_vta", "wy_apply", "frob_truncate",
-              "bitonic_sort_desc"):
+    for k in ("panel_factor", "wy_vta", "wy_vta_copy16", "wy_apply",
+              "frob_truncate", "bitonic_sort_desc"):
         check(counts.get(k, 0) > 0,
               f"engine, full width: kernel {k} never launched")
     check_no_plain(counts, "engine, full width")
@@ -644,7 +632,7 @@ def engine_fullwidth(serve_mod, main_tt: dict) -> dict:
               f"goes {json.dumps(br)}")
     return {"secs": secs, "decay_s": decay_s, "ranks": ranks,
             "counts": counts, "eps_worst": eps_worst, "f32_oracle": oracle,
-            "plan": plan.describe(), "breakdown": times,
+            "plan": plan.describe(), "breakdown": times, "profile": dprof,
             "tts": {p: c.tt for p, c in tt_leaves(payload).items()},
             "wq": wq}
 
@@ -735,11 +723,66 @@ def engine_shapes(full_tts: dict, resnet_plan) -> dict:
     return shapes
 
 
+def vta_checks(kind: str, shape, aligned: bool, gen) -> None:
+    """WY pass 1 on integer inputs in {-1, 0, 1} (every partial sum an exact
+    integer): equal bit for bit to the float64 product rounded to float32,
+    on the copy route the view's alignment picks; and twice on the same
+    random inputs: equal."""
+    from repro_torch.kernels import engine_cases as ec
+    from repro_torch.kernels.block_update import ops as wy
+    fn = wy.wy_vta if kind == "wy_vta" else wy.wy_vta_batched
+    route = ec.vta_route(kind, shape, aligned)
+    v, a = ec.wy_inputs(shape, gen, DEVICE, aligned, ints=True)
+    before = wy.launches[route]
+    exact = bool(torch.equal(fn(v, a), ec.vta_exact(v, a)))
+    routed = wy.launches[route] == before + 1
+    v, a = ec.wy_inputs(shape, gen, DEVICE, aligned)
+    same = bool(torch.equal(fn(v, a), fn(v, a)))
+    del v, a
+    check(exact and routed and same,
+          f"{kind} {shape} {'aligned' if aligned else 'misaligned'}: "
+          f"integer inputs exact {exact}, route {route} {routed}, repeat "
+          f"calls equal {same}")
+
+
+def vta_layout() -> dict:
+    """Pass 1's ptxas usage, and its layout as CUDA reports it against the
+    constants ``chunk_plan`` sizes the grid with; copies in flight per SM."""
+    from repro_torch.kernels import build as kbuild
+    from repro_torch.kernels.block_update import ops as wy
+    usage = {}
+    for fn, use in kbuild.ptxas_usage(wy.SOURCE).items():
+        m = re.search(r"vta_partial_kernelILi(\d+)ELi(\d+)E", fn)
+        if m:
+            usage[f"TN{m.group(1)}_copy{4 * int(m.group(2))}"] = list(use)
+    lay = {}
+    for n in (32, 64):
+        for wide in (True, False):
+            got = wy.layout(n, wide)
+            tn = got["tile"]
+            stage_bytes = 4 * got["stage_rows"] * (wy.MAX_B + tn)
+            got["in_flight_bytes_per_sm"] = (got["blocks_per_sm"]
+                                             * (got["stages"] - 1)
+                                             * stage_bytes)
+            lay[f"TN{tn}_copy{16 if wide else 4}"] = got
+            check(tn == wy.tile_cols(n)
+                  and got["stage_rows"] == wy.STAGE_ROWS
+                  and got["blocks_per_sm"] == wy.BLOCKS_PER_SM[tn],
+                  f"wy pass 1 layout {got} differs from ops.py's")
+    print(f"[kernel] wy pass 1 ptxas [registers, spill store B, spill load B]"
+          f": {json.dumps(usage)}; layout {json.dumps(lay)}")
+    check(len(usage) == 4, f"ptxas report of vta_partial_kernel: {usage}")
+    return {"ptxas": usage, "layout": lay}
+
+
 def engine_kernel_phase(shapes: dict) -> dict:
     """Every engine kernel against its plain version at the main paths'
-    shapes and the ragged ones; times at the main paths' shapes.  Returns
-    per kind the record at its largest main-path shape."""
+    shapes and the ragged ones; WY pass 1's exactness, determinism, copy
+    routes and layout; times at the main paths' shapes.  Returns per kind
+    the record at its largest main-path shape (pass 1 also every main-path
+    shape's times)."""
     from repro_torch.kernels import engine_cases as ec
+    from repro_torch.kernels.block_update import ops as wy
     from repro_torch.kernels.householder import ops as hh
     gen = torch.Generator(device=DEVICE).manual_seed(2)
     limit = hh.smem_rows(PANEL)
@@ -748,10 +791,15 @@ def engine_kernel_phase(shapes: dict) -> dict:
     print(f"[chip_smoke] engine kernel shapes (calls per compression): "
           f"{json.dumps({k: {str(s): n for s, n in v.items()} for k, v in shapes.items()})}")
     rec = {}
+    wy.reset_launches()
     for kind in ec.KINDS:
         main = shapes.get(kind, {})
         for shape in list(main) + extra[kind]:
-            case = ec.engine_case(kind, shape, gen, DEVICE)
+            aligned = shape in main      # the ragged views are misaligned
+            if kind.startswith("wy_vta"):
+                for al in (True,) if aligned else (False, True):
+                    vta_checks(kind, shape, al, gen)
+            case = ec.engine_case(kind, shape, gen, DEVICE, aligned)
             got, ref = case.kernel(), case.plain()
             torch.cuda.synchronize()
             ok, err, parts = ec.compare(case, got, ref, TOL)
@@ -773,10 +821,20 @@ def engine_kernel_phase(shapes: dict) -> dict:
             print(f"{line}; kernel {ms:.4f} ms, plain {p_ms:.4f} ms, library "
                   f"{'-' if l_ms is None else f'{l_ms:.4f}'} ms, bound "
                   f"{bound:.5f} ms, calls {main[shape]}")
+            if kind.startswith("wy_vta"):
+                r.setdefault("by_shape", {})[str(shape)] = {
+                    "ms": ms, "plain_ms": p_ms, "library_ms": l_ms,
+                    "bound_ms": bound, "calls": main[shape]}
             if case.nbytes >= r.get("bytes", -1):
                 r.update(shape=list(shape), ms=ms, plain_ms=p_ms,
                          library_ms=l_ms, bound_ms=bound, bytes=case.nbytes,
                          ops=case.ops)
+    routes = {k: n for k, n in wy.launches.items() if "_copy" in k}
+    print(f"[kernel] wy pass 1 copy routes in this phase: {routes}")
+    for k in ("wy_vta_copy16", "wy_vta_copy4", "wy_vta_batched_copy16",
+              "wy_vta_batched_copy4"):
+        check(routes.get(k, 0) > 0, f"wy pass 1 route {k} never launched")
+    rec["wy_vta"].update(vta_layout())
     return rec
 
 
@@ -784,8 +842,9 @@ def blocked_svd_check(wq: torch.Tensor) -> float:
     """The composed blocked SVD of wq's (24·1024) x (16·64) unfolding (the
     second TT-SVD step's shape; the first step is exact at full rank 24, so
     this reshape has the same singular values) against torch.linalg.svd in
-    float64.  float32 ``torch.linalg.svd`` on the card is printed beside it:
-    it is itself ~1e-4·σ_max off float64 at this shape, too coarse to be the
+    float64; the SVD's phase 2 runs in float64 (``core/svd.diagonalize``).
+    float32 ``torch.linalg.svd`` on the card is printed beside it: it is
+    itself ~1e-4·σ_max off float64 at this shape, too coarse to be the
     oracle."""
     from repro_torch.core.svd import svd
     a = wq.float().reshape(wq.shape[0] * wq.shape[1], -1)
@@ -795,9 +854,9 @@ def blocked_svd_check(wq: torch.Tensor) -> float:
     d_lib = float((torch.linalg.svdvals(a).double() - ref).abs().max()) / smax
     check(d <= 1e-4, f"blocked SVD of {tuple(a.shape)}: max|dsigma|/sigma_max "
                      f"{d:.3e} > 1e-4")
-    print(f"[chip_smoke] blocked SVD of {tuple(a.shape)} vs torch.linalg.svd "
-          f"in float64: max|dsigma|/sigma_max {d:.3e} (torch.linalg.svd in "
-          f"float32: {d_lib:.3e})")
+    print(f"[chip_smoke] blocked SVD of {tuple(a.shape)} (phase 2 in float64) "
+          f"vs torch.linalg.svd in float64: max|dsigma|/sigma_max {d:.3e} "
+          f"(torch.linalg.svd in float32: {d_lib:.3e})")
     return d
 
 
@@ -1526,6 +1585,7 @@ def main() -> int:
                          >= r["ops"] / F32_FLOPS else "operations"),
             "library_ms": r["library_ms"],
             "timed": f"one call at the largest main-path shape {r['shape']}",
+            **{k: r[k] for k in ("by_shape", "ptxas", "layout") if k in r},
         })
     for dtype, run in ((torch.bfloat16, "dense/pallas"),
                        (torch.float32, "dense_f32/pallas")):
@@ -1556,7 +1616,8 @@ def main() -> int:
         {"serve": moe, "f32": gates}))
     print(f"[chip_smoke] engine summary: " + json.dumps({
         "full_width": {k: full[k] for k in (
-            "secs", "decay_s", "eps_worst", "f32_oracle", "breakdown")},
+            "secs", "decay_s", "eps_worst", "f32_oracle", "breakdown",
+            "profile")},
         "full_width_ranks": {k: list(v) for k, v in full["ranks"].items()},
         "full_width_launches": full["counts"],
         "resnet32": {k: resnet[k] for k in (

@@ -3,8 +3,9 @@ diagonalization of the small bidiagonal block.
 
     phase 1 (HBD)   A = U_B B V_Bᵀ      (``core/hbd.py``, or the blocked WY
                                         variant in ``core/blocked.py``)
-    phase 2 (diag)  B = Q Σ Pᵀ          (``torch.linalg.svd`` on the N×N block,
-                                        as the reference uses jnp's SVD there)
+    phase 2 (diag)  B = Q Σ Pᵀ          (``torch.linalg.svd`` on the N×N block
+                                        in float64, as the reference uses
+                                        jnp's SVD there; ``diagonalize``)
 
 and U = U_B Q, Vᵀ = Pᵀ V_Bᵀ.  ``sorting_basis`` is the paper's
 Sorting_Basis: σ descending, bases permuted by the same index vector, from
@@ -41,6 +42,16 @@ def sorting_basis(u, s, vt) -> SVDResult:
     return SVDResult(*_sort.sorting_basis(u, s, vt))
 
 
+def diagonalize(b: torch.Tensor) -> SVDResult:
+    """Phase 2: B = Q Σ Pᵀ of the N×N bidiagonal block (or a stack), computed
+    in float64 and returned in float32, on every device.  float32
+    ``torch.linalg.svd`` on a CUDA card (cuSOLVER) is ~3e-5·σ_max off
+    float64 at the compressor's shapes, ~50× what float32 LAPACK, which
+    the reference runs, gives there."""
+    q, s, pt = torch.linalg.svd(b.double(), full_matrices=False)
+    return SVDResult(q.float(), s.float(), pt.float())
+
+
 def _svd(a: torch.Tensor, method: str, hbd_impl: str, panel: int
          ) -> SVDResult:
     """One (M, N) matrix or a (B, M, N) stack; a stack runs the batched HBD
@@ -68,7 +79,7 @@ def _svd(a: torch.Tensor, method: str, hbd_impl: str, panel: int
         u_b, b, v_bt = householder_bidiagonalize_batched(a32)
     else:
         u_b, b, v_bt = householder_bidiagonalize(a32)
-    q, s, pt = torch.linalg.svd(b, full_matrices=False)    # phase 2, N×N
+    q, s, pt = diagonalize(b)                                # phase 2, N×N
     # the sort's index vector permutes the small phase-2 factors: U_B (Q P)
     # is (U_B Q) P, without a second M×N copy of the big one
     q, s, pt = sorting_basis(q, s, pt)

@@ -40,9 +40,13 @@ MAX_B = 32
 launches: collections.Counter = collections.Counter()
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_TARGET_BLOCKS = 264     # pass 1 blocks: about two per SM of the H100's 132
-_ROW_TILE = 32           # kRowTile
-_COLS = 64               # kCols
+# pass 1's layout, as csrc/block_update.cu has it (``layout`` reads it back
+# on the card): rows per ring stage, and the blocks an SM runs for each
+# column tile
+STAGE_ROWS = 64          # kStageRows
+BLOCKS_PER_SM = {32: 3, 64: 2}
+SMS = 132                # the H100's SMs
+GRID_YZ = 65535          # gridDim.y (chunks) and gridDim.z (batch) limit
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -56,7 +60,8 @@ def reset_launches() -> None:
 @functools.cache
 def _lib() -> ctypes.CDLL:
     return _build.load_bound(SOURCE, {
-        "wy_vta": [_P, _P, _L, _L, _P, _P] + [_I] * 6 + [_P],
+        "wy_vta": [_P, _P, _L, _L, _P, _P] + [_I] * 6 + [_P, _P],
+        "wy_vta_layout": [_I, _I, _P, _P, _P, _P],
         "wy_apply": [_P, _L, _L, _P, _P, _P, _L, _L] + [_I] * 4 + [_P]})
 
 
@@ -66,13 +71,34 @@ def build() -> None:
     _lib()
 
 
+def tile_cols(n: int) -> int:
+    """Pass 1's column tile for N columns: 32 up to 32, else 64."""
+    return 32 if n <= 32 else 64
+
+
 def chunk_plan(m: int, n: int, batch: int):
-    """(rows per chunk, chunk count) for pass 1's split of M."""
-    tiles = _cdiv(n, _COLS) * batch
-    want = max(1, _cdiv(_TARGET_BLOCKS, max(tiles, 1)))
-    nchunk = max(1, min(want, _cdiv(m, _ROW_TILE)))
-    crows = _cdiv(_cdiv(m, nchunk), _ROW_TILE) * _ROW_TILE
+    """(rows per chunk, chunk count) for pass 1's split of M: chunks of
+    whole stages, as many as the SMs run at once at the tile's occupancy
+    (one chunk when the column tiles alone fill them, fewer when M has
+    fewer stages): a block past that would start a second wave alone."""
+    tn = tile_cols(n)
+    tiles = _cdiv(n, tn) * batch
+    want = max(1, SMS * BLOCKS_PER_SM[tn] // max(tiles, 1))
+    nchunk = max(1, min(want, _cdiv(m, STAGE_ROWS), GRID_YZ))
+    crows = _cdiv(_cdiv(m, nchunk), STAGE_ROWS) * STAGE_ROWS
     return crows, _cdiv(m, crows)
+
+
+def layout(n: int, wide: bool) -> dict:
+    """Pass 1's layout as the built kernel reports it for N columns on the
+    16-byte (``wide``) or 4-byte copy route: stage rows, ring stages,
+    column tile and blocks per SM (CUDA's occupancy calculator)."""
+    lib = _lib()
+    out = [ctypes.c_int() for _ in range(4)]
+    code = lib.wy_vta_layout(n, int(wide), *(ctypes.byref(x) for x in out))
+    _build.raise_on(lib, code, "wy_vta_layout")
+    return dict(zip(("stage_rows", "stages", "tile", "blocks_per_sm"),
+                    (x.value for x in out)))
 
 
 def _check(name, a, v, w_or_t=None):
@@ -109,11 +135,14 @@ def _vta(v, a, name):
                        device=a.device)
     lda, sa = _strides(a)
     lib = _lib()
+    wide = ctypes.c_int()
     code = lib.wy_vta(v.data_ptr(), a.data_ptr(), lda, sa, part.data_ptr(),
                       y.data_ptr(), batch, m, n, b, crows, nchunk,
+                      ctypes.byref(wide),
                       torch.cuda.current_stream(a.device).cuda_stream)
     _build.raise_on(lib, code, name)
     launches[name] += 1
+    launches[f"{name}_copy{16 if wide.value else 4}"] += 1
     return y
 
 
@@ -221,8 +250,9 @@ def block_wy_update_batched(a: torch.Tensor, v: torch.Tensor,
 
 
 __all__ = [
-    "KERNELS", "MAX_B", "apply_plain", "apply_ref", "block_wy_update",
-    "block_wy_update_batched", "build", "chunk_plan", "launches",
-    "reset_launches", "vta_plain", "vta_ref", "wy_apply", "wy_apply_batched",
+    "BLOCKS_PER_SM", "GRID_YZ", "KERNELS", "MAX_B", "SMS", "STAGE_ROWS",
+    "apply_plain", "apply_ref", "block_wy_update", "block_wy_update_batched",
+    "build", "chunk_plan", "launches", "layout", "reset_launches",
+    "tile_cols", "vta_plain", "vta_ref", "wy_apply", "wy_apply_batched",
     "wy_update_ref", "wy_vta", "wy_vta_batched",
 ]

@@ -14,6 +14,10 @@ One table of shapes and one way to draw a case's inputs, shared by
     hands it over, with one zero column (the ``safe`` branch);
   * ``"wy_vta"`` (m, n, b) / ``"wy_vta_batched"`` (B, m, n, b): Y = Vᵀ A;
   * ``"wy_apply"`` (m, n, b) / ``"wy_apply_batched"`` (B, m, n, b): A − V W;
+    A is the trailing block of a wider matrix, as blocked QR hands it over:
+    ``aligned`` (the default) at an offset of 32 columns, as the main path's
+    views, where pass 1 takes its 16-byte copy route; otherwise at an
+    offset of 5 (4-byte route);
   * ``"sort"`` (n,) / ``"sort_batched"`` (B, n): σ with ties → (sorted,
     index vector), compared exactly;
   * ``"truncate"`` (n,) / ``"truncate_batched"`` (B, n): sorted σ and δ →
@@ -21,6 +25,11 @@ One table of shapes and one way to draw a case's inputs, shared by
 
 Each case also carries the bytes its function must move (each input read
 once, each output written once) and the operations it does, for the bound.
+
+``wy_inputs(shape, gen, device, aligned, ints=True)`` draws pass 1's inputs
+with entries in {−1, 0, 1}: every partial sum is then an integer far below
+2²⁴, so any summation order is exact and the kernel must equal
+``vta_exact(v, a)`` bit for bit.
 """
 
 from __future__ import annotations
@@ -51,11 +60,15 @@ KINDS = tuple(COUNTERS)
 
 # ragged shapes: nothing a multiple of the kernels' tiles, panels narrower
 # than a warp, a panel shorter than it is wide, rows that are not a power
-# of two
+# of two; for pass 1 also M one row past a 64-row stage, N = 32 (its narrow
+# column tile), N = 64 and N = 100 (ragged past the wide tile), b = 28 (V
+# padded on the 16-byte route) and b = 13
 RAGGED_SHAPES = {
     "panel": [(77, 13), (20, 32), (3001, 7)],
     "panel_batched": [(3, 77, 13), (2, 2050, 32)],
-    "wy_vta": [(77, 45, 13)], "wy_vta_batched": [(3, 77, 45, 13)],
+    "wy_vta": [(77, 45, 13), (65, 32, 32), (65, 64, 32), (1000, 100, 28),
+               (4161, 45, 13)],
+    "wy_vta_batched": [(3, 77, 45, 13), (2, 65, 32, 32), (3, 129, 100, 28)],
     "wy_apply": [(77, 45, 13)], "wy_apply_batched": [(3, 77, 45, 13)],
     "sort": [(1,), (5,), (100,)], "sort_batched": [(3, 100)],
     "truncate": [(1,), (5,), (100,)], "truncate_batched": [(3, 100)],
@@ -86,7 +99,39 @@ def _panel_input(shape, gen, device):
     return base[..., :, 1:b + 1] if b > 1 else base[..., :, :b]
 
 
-def engine_case(kind: str, shape, gen: torch.Generator, device) -> Case:
+ALIGNED_PAD, MISALIGNED_PAD = 32, 5
+
+
+def wy_inputs(shape, gen, device, aligned: bool = True, ints: bool = False):
+    """(v, a) of a WY case of shape (…, m, n, b): a is the (…, m, n)
+    trailing block of a (…, m, n + pad) matrix; unit-normal entries (v
+    scaled by 1/√m), or entries in {−1, 0, 1} with ``ints``."""
+    *lead, m, n, b = shape
+    pad = ALIGNED_PAD if aligned else MISALIGNED_PAD
+    if ints:
+        a = torch.randint(-1, 2, (*lead, m, n + pad), generator=gen,
+                          device=device, dtype=torch.float32)
+        v = torch.randint(-1, 2, (*lead, m, b), generator=gen,
+                          device=device, dtype=torch.float32)
+    else:
+        a = torch.randn(*lead, m, n + pad, generator=gen, device=device)
+        v = torch.randn(*lead, m, b, generator=gen, device=device) / math.sqrt(m)
+    return v, a[..., :, pad:]
+
+
+def vta_exact(v, a):
+    """Y = Vᵀ A in float64, rounded to float32."""
+    return (v.double().transpose(-1, -2) @ a.double()).float()
+
+
+def vta_route(kind: str, shape, aligned: bool) -> str:
+    """The launch counter of the copy route pass 1 takes for a case."""
+    wide = aligned and shape[-1] % 4 == 0
+    return f"{kind}_copy{16 if wide else 4}"
+
+
+def engine_case(kind: str, shape, gen: torch.Generator, device,
+                aligned: bool = True) -> Case:
     def rn(*s):
         return torch.randn(*s, generator=gen, device=device)
 
@@ -105,9 +150,7 @@ def engine_case(kind: str, shape, gen: torch.Generator, device) -> Case:
     if kind.startswith("wy_"):
         *lead, m, n, b = shape
         nb = math.prod(lead) if lead else 1
-        # the trailing block of a wider matrix, as blocked QR updates it
-        a = rn(*lead, m, n + 5)[..., :, 5:]
-        v = rn(*lead, m, b) / math.sqrt(m)
+        v, a = wy_inputs(shape, gen, device, aligned)
         flops = 2 * nb * m * n * b
         if kind.startswith("wy_vta"):
             fn = wy.wy_vta if kind == "wy_vta" else wy.wy_vta_batched

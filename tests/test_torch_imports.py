@@ -1,5 +1,5 @@
-"""Port boundaries: the PyTorch package and ``chip_smoke.py`` import
-neither JAX nor the JAX package, and the entry points refuse to run on a
+"""Port boundaries: the PyTorch package, ``chip_smoke.py`` and the card's
+timing tools import neither JAX nor the JAX package, and the entry points refuse to run on a
 host without a GPU unless the caller asks for the CPU."""
 
 import re
@@ -23,7 +23,10 @@ FORBIDDEN = re.compile(
 
 def _port_files():
     files = sorted((REPO / "src" / "repro_torch").rglob("*.py"))
-    return files + [REPO / "chip_smoke.py"]
+    # chip_smoke.py and the card's timing tools (it imports cuda_timing)
+    tools = [REPO / "tools" / f"{name}.py"
+             for name in ("cuda_timing", "kernel_time", "compress_time")]
+    return files + [REPO / "chip_smoke.py"] + tools
 
 
 def test_port_files_exist():

@@ -11,7 +11,14 @@
   at full-width shapes, ResNet-32's batched shapes, ragged shapes and
   panels on either side of the shared-memory limit: 2e-4·max|ref|, sorted
   σ, index vectors and ranks exactly equal; and the blocked QR built on
-  them.
+  them.  The WY cases' A is a trailing view of a wider matrix: 16-byte
+  aligned at the full-width shapes (as blocked QR's views), misaligned
+  (offset 5) at the ragged ones, and pass 1 must take the matching copy
+  route.  Pass 1 also on integer inputs in {−1, 0, 1} at every shape, both
+  alignments: equal bit for bit to the float64 product rounded to float32
+  (every partial sum is an exact integer); and two calls on the same random
+  inputs give equal results.  The blocked SVD (phase 2 in float64) within
+  1e-6·σ_max of float64 ``svdvals``.
 * The flash-attention kernel (``kernels/flash_attention/cases.py``, shared
   with ``chip_smoke.py``): the hybrid path's shape, the reference's sweep,
   causal without window, non-causal, S in {64, 100, 128}, every head dim,
@@ -32,7 +39,9 @@ without one.  Imports no JAX, so it runs on the card's machine:
 import pytest
 import torch
 
+from repro_torch.core.svd import svd
 from repro_torch.kernels import engine_cases as ec
+from repro_torch.kernels.block_update import ops as wy
 from repro_torch.kernels.flash_attention import cases as flash_cases
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.householder import ops as hh
@@ -133,23 +142,73 @@ ENGINE_FULL_SHAPES = {
     "sort": [(2_816,), (1_024,)], "sort_batched": [(9, 64), (9, 3)],
     "truncate": [(2_816,), (24,)], "truncate_batched": [(9, 64), (9, 3)],
 }
-ENGINE_CASES = [(kind, shape) for table in (ENGINE_FULL_SHAPES,
-                                            ec.RAGGED_SHAPES)
+# (kind, shape, aligned): the WY views aligned at full width, not ragged
+ENGINE_CASES = [(kind, shape, aligned)
+                for table, aligned in ((ENGINE_FULL_SHAPES, True),
+                                       (ec.RAGGED_SHAPES, False))
                 for kind, shapes in table.items() for shape in shapes]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kind,shape", ENGINE_CASES)
-def test_engine_kernels_match_plain_on_card(cuda_device, kind, shape):
+@pytest.mark.parametrize("kind,shape,aligned", ENGINE_CASES)
+def test_engine_kernels_match_plain_on_card(cuda_device, kind, shape,
+                                            aligned):
     gen = torch.Generator(device=cuda_device).manual_seed(0)
-    case = ec.engine_case(kind, shape, gen, cuda_device)
+    case = ec.engine_case(kind, shape, gen, cuda_device, aligned)
     mod, counter = ec.COUNTERS[kind]
-    before = mod.launches[counter]
+    before = dict(mod.launches)
     got, ref = case.kernel(), case.plain()
     torch.cuda.synchronize()
     ok, _, parts = ec.compare(case, got, ref, 2e-4)
     assert ok, (kind, shape, parts)
-    assert mod.launches[counter] == before + 1
+    assert mod.launches[counter] == before.get(counter, 0) + 1
+    if kind.startswith("wy_vta"):
+        route = ec.vta_route(kind, shape, aligned)
+        assert mod.launches[route] == before.get(route, 0) + 1, route
+
+
+VTA_CASES = [(kind, shape, aligned)
+             for table in (ENGINE_FULL_SHAPES, ec.RAGGED_SHAPES)
+             for kind in ("wy_vta", "wy_vta_batched")
+             for shape in table[kind] for aligned in (True, False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,shape,aligned", VTA_CASES)
+def test_wy_vta_integer_inputs_are_exact(cuda_device, kind, shape, aligned):
+    """Entries in {−1, 0, 1}: every partial sum is an integer far below
+    2^24, exact in any order, so a dropped or doubled row shows."""
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    v, a = ec.wy_inputs(shape, gen, cuda_device, aligned, ints=True)
+    fn = wy.wy_vta if kind == "wy_vta" else wy.wy_vta_batched
+    route = ec.vta_route(kind, shape, aligned)
+    before = wy.launches[route]
+    got = fn(v, a)
+    torch.cuda.synchronize()
+    assert wy.launches[route] == before + 1, route
+    assert torch.equal(got, ec.vta_exact(v, a)), (kind, shape, aligned)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,shape,aligned", VTA_CASES)
+def test_wy_vta_repeat_calls_are_identical(cuda_device, kind, shape,
+                                          aligned):
+    gen = torch.Generator(device=cuda_device).manual_seed(6)
+    v, a = ec.wy_inputs(shape, gen, cuda_device, aligned)
+    fn = wy.wy_vta if kind == "wy_vta" else wy.wy_vta_batched
+    first = fn(v, a)
+    assert torch.equal(first, fn(v, a)), (kind, shape, aligned)
+
+
+@pytest.mark.cuda
+def test_blocked_svd_on_card_within_float64(cuda_device):
+    """Phase 2 in float64: the blocked SVD of a tall float32 matrix within
+    1e-6·σ_max of float64 svdvals (float32 cuSOLVER: ~3e-5 at this size)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(7)
+    a = torch.randn(24_576, 1_024, generator=gen, device=cuda_device)
+    ref = torch.linalg.svdvals(a.double())
+    got = svd(a, hbd_impl="blocked").s.double()
+    assert float((got - ref).abs().max()) <= 1e-6 * float(ref.max())
 
 
 @pytest.mark.cuda

@@ -3,7 +3,11 @@
 HBD: B, the thin U_B (the reference's ``u_b[:, :n]``) and V_Bᵀ to 1e-4
 relative.  SVD: σ to 1e-5 relative and U·Σ·Vᵀ to 1e-4 relative (phase-2
 signs may differ, so the factors are compared through their product).
+Phase 2 runs in float64: on a bidiagonal block with σ over six decades
+each σ is within one float32 ulp of float64 ``svdvals`` of the same block.
 """
+
+import math
 
 import jax.numpy as jnp
 import numpy as np
@@ -15,7 +19,7 @@ from repro.core.svd import svd as jax_svd
 from repro.core import truncation as jax_trunc
 from repro_torch.core import truncation as trunc
 from repro_torch.core.hbd import householder_bidiagonalize
-from repro_torch.core.svd import sorting_basis, svd
+from repro_torch.core.svd import diagonalize, sorting_basis, svd
 
 from _torch_port import assert_close_scaled
 
@@ -87,6 +91,25 @@ def test_svd_matches_jax(rng, shape, method):
     usv = (got.u * got.s) @ got.vt
     ref_usv = (np.asarray(ref.u) * np.asarray(ref.s)) @ np.asarray(ref.vt)
     assert_close_scaled(usv, ref_usv, 1e-4)
+
+
+def test_phase2_runs_in_float64():
+    """σ_i ∝ 10^(−6i/N), N = 256, on an upper-bidiagonal float32 block: the
+    port's phase 2 gives each σ within one float32 ulp of float64 svdvals
+    of the same block rounded to float32.  float32 LAPACK misses that by
+    up to ~10 ulps on the small σ, so the check pins the float64 route."""
+    n = 256
+    rng = np.random.default_rng(7)
+    sig = 10.0 ** (-6.0 * np.arange(n) / n)
+    b = np.diag(sig) + np.diag(rng.uniform(0.1, 0.5, n - 1) * sig[:-1], 1)
+    b32 = torch.from_numpy(b.astype(np.float32))
+    q, s, pt = diagonalize(b32)
+    assert q.dtype == s.dtype == pt.dtype == torch.float32
+    ref = torch.linalg.svdvals(b32.double()).float()
+    ulp = torch.nextafter(ref, torch.full_like(ref, math.inf)) - ref
+    assert bool(((s - ref).abs() <= ulp).all())
+    assert bool(((torch.linalg.svdvals(b32) - ref).abs() > ulp).any())
+    assert_close_scaled((q * s) @ pt, b32, 1e-6)
 
 
 def test_svd_rejects_unknown_paths():
