@@ -6,7 +6,8 @@
                                               or a leading batch
 
 For CUDA tensors the sorts launch ``csrc/singular_sort.cu`` (one block per
-row, a bitonic network on (σ, index) pairs in shared memory); for tensors
+row, a bitonic network on (σ, index) keys held in registers: stages within
+a thread or a warp need no barrier); for tensors
 on the CPU they run the plain version in ``ref.py``.  The index vector is
 the stable ``argsort(-σ)`` either way.  A failed build or launch raises.
 ``launches`` counts kernel launches per wrapper, and ``"plain_on_cuda"``
@@ -29,7 +30,6 @@ from repro_torch.kernels.singular_sort.ref import (
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "singular_sort.cu"
 KERNELS = ("bitonic_sort_desc", "bitonic_sort_desc_batched")
-NEG_INF = -3.4e38          # padding sentinel, as the TPU kernel's
 
 launches: collections.Counter = collections.Counter()
 
@@ -54,8 +54,9 @@ def build() -> None:
 
 
 def padded_length(n: int) -> int:
-    """The power of two the network sorts a row of ``n`` in."""
-    return 1 << max(n - 1, 0).bit_length()
+    """The power of two (at least 32, one warp) the network sorts a row of
+    ``n`` in."""
+    return max(32, 1 << max(n - 1, 0).bit_length())
 
 
 def _launch(s2: torch.Tensor, name: str):
@@ -67,7 +68,7 @@ def _launch(s2: torch.Tensor, name: str):
         return out_s, out_idx
     n_pad = padded_length(n)
     lib = _lib()
-    if n_pad * 8 > lib.max_shared_bytes():
+    if n_pad * 8 > lib.max_shared_bytes():   # one buffer of 8-byte keys
         raise ValueError(f"{name}: n={n} (padded {n_pad}) exceeds one "
                          f"block's shared memory")
     stream = torch.cuda.current_stream(s2.device).cuda_stream
@@ -120,7 +121,7 @@ def sorting_basis(u: torch.Tensor, s: torch.Tensor, vt: torch.Tensor):
 
 
 __all__ = [
-    "KERNELS", "NEG_INF", "build", "launches", "padded_length",
+    "KERNELS", "build", "launches", "padded_length",
     "permute_bases", "reset_launches", "sort_desc_plain", "sort_desc_ref",
     "sort_singular_values", "sort_singular_values_batched", "sorting_basis",
     "sorting_basis_ref",
