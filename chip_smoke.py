@@ -37,23 +37,32 @@
    a. full-width qwen1.5-0.5b, the main path's weights, compressed with
       the TT-Edge policy (``hbd_impl="blocked"``) on the batched plan,
       under ``torch.profiler`` (device time by kernel, each engine
-      kernel's and WY pass 1's share): plan, seconds, ranks beside the main
-      path's (each within one), every TT leaf within ε, TT-native vs
-      reconstruct-then-serve in float32 at 1e-4 of scale, and the
-      single-panel, WY (pass 1 on its 16-byte copy route), sort and
-      truncation kernels launched with no plain call; then where the time
-      goes, for both HBD impls (host timers around each phase,
+      kernel's and WY pass 1's share, the panel factor's split by route):
+      plan, seconds, ranks beside the main path's (each within one), every
+      TT leaf within ε, TT-native vs reconstruct-then-serve in float32 at
+      1e-4 of scale, and the single-panel (its streamed panels on the TSQR
+      route, none on the sweep), WY (pass 1 on its 16-byte copy route), sort
+      and truncation kernels launched with no plain call; then where the
+      time goes, for both HBD impls (host timers around each phase,
       synchronized);
    b. ResNet-32 (``configs/resnet32.py``, seed 0, α 1.0, eps 0.2), blocked,
       batched plan: 4 bucket passes and no serial member, every TT leaf
       within ε, ranks and payload equal to a ``plan="serial"`` run, and
-      the batched kernels launched;
+      the batched kernels launched (the batched panel on the TSQR route
+      too, none on the sweep);
    c. each engine kernel against its plain version at the shapes those
       two runs gave it (printed; the WY views 16-byte aligned, as blocked
-      QR's), ragged shapes (the WY views misaligned: pass 1's 4-byte copy
-      route) and panels on either side of the shared-memory limit
-      (``kernels/engine_cases.py``): 2e-4 * max|ref|, sorted σ, index
-      vectors and ranks exactly equal; WY pass 1 also on integer inputs in
+      QR's; the panels dense, and also with trailing zero columns as
+      ``qr_blocked`` pads them), ragged shapes (the WY views misaligned:
+      pass 1's 4-byte copy route; the panels dense, padded and with an
+      interior zero column) and panels on either side of the
+      shared-memory limit (``kernels/engine_cases.py``): 2e-4 * max|ref|,
+      and for panels also V per column, τ, R per row and the float64
+      residual and orthogonality (``engine_cases.compare``), each panel
+      counted under the route its fill and height pick (smem, tsqr,
+      sweep), trailing zero columns exactly zero, repeat calls
+      bit-identical; sorted σ, index vectors and ranks exactly equal; WY
+      pass 1 also on integer inputs in
       {-1, 0, 1} at each of those shapes (and the ragged ones aligned too),
       equal bit for bit to the float64 product, and twice on the same random
       inputs, equal; its ptxas registers and spills, its layout (stages,
@@ -114,8 +123,9 @@
       bank shapes, depth 3 at synthetic shapes, 64 experts of 1, 4 and 64
       tokens, float32, bfloat16 and int8 tails (TOL of max|ref|); times of
       kernel, plain version and one ``torch.einsum`` at 1 token per expert.
-7. Prints one ``{"kernels": [...]}`` JSON line (the twelve other ported
-   kernels, one entry per flash route and one per batched chain route),
+7. Prints the script's total seconds, one ``{"kernels": [...]}`` JSON line
+   (the twelve other ported kernels, one entry per flash route and one per
+   batched chain route; the panel rows with their main-path route counts),
    the card line again, and as the last line ``{"ok": true, "device":
    {...}}``.
 
@@ -532,6 +542,9 @@ ENGINE_KERNELS = {"wy pass 1": ("vta_partial_kernel", "vta_reduce_kernel"),
                   "panel factor": ("panel_",),
                   "sort": ("bitonic_sort_kernel",),
                   "truncate": ("frob_truncate_kernel",)}
+# the panel factor's routes by the names of their CUDA functions
+PANEL_ROUTES = {"smem": ("panel_smem_kernel",), "tsqr": ("panel_tsqr_",),
+                "sweep": ("panel_sweep_kernel", "panel_finalize_kernel")}
 
 
 def device_profile(prof, wall_s: float) -> dict:
@@ -546,14 +559,33 @@ def device_profile(prof, wall_s: float) -> dict:
         ms = sum(v[0] for v in hit)
         engine[label] = {"ms": ms, "launches": sum(v[1] for v in hit),
                          "share": ms / busy if busy else 0.0}
+    panel = {}
+    for route, keys in PANEL_ROUTES.items():
+        hit = [v for k, v in by_name.items() if any(x in k for x in keys)]
+        panel[route] = {"ms": sum(v[0] for v in hit),
+                        "launches": sum(v[1] for v in hit)}
     engine_names = [k for k in by_name if any(
         x in k for keys in ENGINE_KERNELS.values() for x in keys)]
     rest = sorted(((k, v) for k, v in by_name.items()
                    if k not in engine_names), key=lambda kv: -kv[1][0])
     return {"wall_s": wall_s, "device_busy_ms": busy,
             "launches": sum(n for _, n in by_name.values()),
-            "engine": engine,
+            "engine": engine, "panel_by_route": panel,
             "top_other": [[k[:70], n, ms] for k, (ms, n) in rest[:8]]}
+
+
+def check_panel_routes(counts: dict, what: str) -> None:
+    """Every panel call of a main path counted under one route, and no
+    streamed panel on the sweep route (the main path's panels hold no zero
+    column before a nonzero one)."""
+    from repro_torch.kernels.householder import ops as hh
+    for name in hh.KERNELS:
+        routes = {r: counts.get(f"{name}_{r}", 0) for r in hh.ROUTES}
+        check(sum(routes.values()) == counts.get(name, 0),
+              f"{what}: {name} {counts.get(name, 0)} calls, routes {routes}")
+        check(routes["sweep"] == 0,
+              f"{what}: {routes['sweep']} streamed {name} calls took the "
+              f"sweep route")
 
 
 def engine_fullwidth(serve_mod, main_tt: dict) -> dict:
@@ -593,6 +625,8 @@ def engine_fullwidth(serve_mod, main_tt: dict) -> dict:
           f"the device's busy time, {p1['launches']} launches incl. the "
           f"fixed-order sum); engine kernels [ms, launches, share] "
           f"{json.dumps({k: [v['ms'], v['launches'], v['share']] for k, v in dprof['engine'].items()})}; "
+          f"panel factor by route [ms, launches] "
+          f"{json.dumps({k: [v['ms'], v['launches']] for k, v in dprof['panel_by_route'].items()})}; "
           f"top other kernels [name, launches, ms] "
           f"{json.dumps(dprof['top_other'])} (read in "
           f"{time.perf_counter() - t0:.1f}s)")
@@ -615,10 +649,12 @@ def engine_fullwidth(serve_mod, main_tt: dict) -> dict:
     eps_worst = eps_gate(params, payload, "engine, full width")
     oracle = f32_oracle(serve_mod, {"model": model, "payload": payload,
                                     "prompts": main_tt["prompts"]})
-    for k in ("panel_factor", "wy_vta", "wy_vta_copy16", "wy_apply",
-              "frob_truncate", "bitonic_sort_desc"):
+    for k in ("panel_factor", "panel_factor_tsqr", "wy_vta",
+              "wy_vta_copy16", "wy_apply", "frob_truncate",
+              "bitonic_sort_desc"):
         check(counts.get(k, 0) > 0,
               f"engine, full width: kernel {k} never launched")
+    check_panel_routes(counts, "engine, full width")
     check_no_plain(counts, "engine, full width")
     print(f"[chip_smoke] engine, full width: launches {counts}")
 
@@ -675,9 +711,11 @@ def engine_resnet() -> dict:
     ranks = sorted({c.tt.ranks for c in tts.values()})
     print(f"[chip_smoke] engine, ResNet-32: ranks {ranks} equal the serial "
           f"plan's ({s_secs:.3f}s); payload {report.payload_params}")
-    for k in ("panel_factor_batched", "wy_vta_batched", "wy_apply_batched",
-              "frob_truncate_batched", "bitonic_sort_desc_batched"):
+    for k in ("panel_factor_batched", "panel_factor_batched_tsqr",
+              "wy_vta_batched", "wy_apply_batched", "frob_truncate_batched",
+              "bitonic_sort_desc_batched"):
         check(counts.get(k, 0) > 0, f"ResNet-32: kernel {k} never launched")
+    check_panel_routes(counts, "ResNet-32")
     check_no_plain(counts, "ResNet-32")
     return {"secs": secs, "counts": counts, "ranks": ranks,
             "payload_params": report.payload_params, "ratio": report.ratio,
@@ -775,6 +813,32 @@ def vta_layout() -> dict:
     return {"ptxas": usage, "layout": lay}
 
 
+def panel_route_check(case, fill: str, got, before: dict, limit: int):
+    """A panel case launched once, counted under the route its fill and
+    height pick (``engine_cases.panel_route``; the comparison's plain call
+    counts apart); trailing zero columns exactly zero in V, τ and R; a
+    second call bit-identical."""
+    from repro_torch.kernels import engine_cases as ec
+    from repro_torch.kernels.householder import ops as hh
+    counter = ec.COUNTERS[case.kind][1]
+    route = ec.panel_route(case.shape, fill, limit)
+    moved = {k: n - before.get(k, 0) for k, n in hh.launches.items()
+             if n != before.get(k, 0) and k != "plain_on_cuda"}
+    check(moved == {counter: 1, f"{counter}_{route}": 1},
+          f"{case.kind} {case.shape} {fill}: launches {moved}, want route "
+          f"{route}")
+    if fill == "padded":
+        z = ec.padded_zeros(case.shape[-1])
+        v, tau, r = got
+        check(not (v[..., -z:].any() or tau[..., -z:].any()
+                   or r[..., -z:, :].any() or r[..., :, -z:].any()),
+              f"{case.kind} {case.shape}: trailing zero columns not zero in "
+              f"V, tau, R")
+    again = case.kernel()
+    check(all(torch.equal(x, y) for x, y in zip(got, again)),
+          f"{case.kind} {case.shape} {fill}: repeat calls differ")
+
+
 def engine_kernel_phase(shapes: dict) -> dict:
     """Every engine kernel against its plain version at the main paths'
     shapes and the ragged ones; WY pass 1's exactness, determinism, copy
@@ -799,36 +863,49 @@ def engine_kernel_phase(shapes: dict) -> dict:
             if kind.startswith("wy_vta"):
                 for al in (True,) if aligned else (False, True):
                     vta_checks(kind, shape, al, gen)
-            case = ec.engine_case(kind, shape, gen, DEVICE, aligned)
-            got, ref = case.kernel(), case.plain()
-            torch.cuda.synchronize()
-            ok, err, parts = ec.compare(case, got, ref, TOL)
-            check(ok, f"{kind} {shape} disagrees with its plain version "
-                      f"{parts}")
-            line = (f"[kernel] {kind} {shape}: {parts} "
-                    f"{'ok' if ok else 'FAIL'}")
-            r = rec.setdefault(kind, {"max_abs_err": 0.0})
-            r["max_abs_err"] = max(r["max_abs_err"], err)
-            if shape not in main:
-                print(line)
-                continue
-            reps = 10
-            ms = time_ms(case.kernel, reps)
-            p_ms = time_ms(case.plain, reps)
-            l_ms = time_ms(case.library, reps) if case.library else None
-            bound = max(case.nbytes / HBM_BYTES_PER_S,
-                        case.ops / F32_FLOPS) * 1e3
-            print(f"{line}; kernel {ms:.4f} ms, plain {p_ms:.4f} ms, library "
-                  f"{'-' if l_ms is None else f'{l_ms:.4f}'} ms, bound "
-                  f"{bound:.5f} ms, calls {main[shape]}")
-            if kind.startswith("wy_vta"):
-                r.setdefault("by_shape", {})[str(shape)] = {
-                    "ms": ms, "plain_ms": p_ms, "library_ms": l_ms,
-                    "bound_ms": bound, "calls": main[shape]}
-            if case.nbytes >= r.get("bytes", -1):
-                r.update(shape=list(shape), ms=ms, plain_ms=p_ms,
-                         library_ms=l_ms, bound_ms=bound, bytes=case.nbytes,
-                         ops=case.ops)
+            # panels: the main path's are dense (timed) or padded; the
+            # ragged ones take every fill
+            fills = ((("dense", "padded") if aligned else ec.PANEL_FILLS)
+                     if kind.startswith("panel") else ("dense",))
+            for fill in fills:
+                case = ec.engine_case(kind, shape, gen, DEVICE, aligned, fill)
+                before = dict(hh.launches)
+                got, ref = case.kernel(), case.plain()
+                torch.cuda.synchronize()
+                ok, err, parts = ec.compare(case, got, ref, TOL)
+                check(ok, f"{kind} {shape} {fill} disagrees with its plain "
+                          f"version {parts}")
+                if kind.startswith("panel"):
+                    panel_route_check(case, fill, got, before, limit)
+                line = (f"[kernel] {kind} {shape}"
+                        f"{f' {fill}' if kind.startswith('panel') else ''}: "
+                        f"{parts} {'ok' if ok else 'FAIL'}")
+                r = rec.setdefault(kind, {"max_abs_err": 0.0})
+                r["max_abs_err"] = max(r["max_abs_err"], err)
+                del got, ref
+                if shape not in main or fill != "dense":
+                    print(line)
+                    continue
+                reps = 10
+                ms = time_ms(case.kernel, reps)
+                p_ms = time_ms(case.plain, reps)
+                l_ms = time_ms(case.library, reps) if case.library else None
+                bound = max(case.nbytes / HBM_BYTES_PER_S,
+                            case.ops / F32_FLOPS) * 1e3
+                print(f"{line}; kernel {ms:.4f} ms, plain {p_ms:.4f} ms, "
+                      f"library {'-' if l_ms is None else f'{l_ms:.4f}'} ms, "
+                      f"bound {bound:.5f} ms, calls {main[shape]}")
+                if kind.startswith("wy_vta"):
+                    r.setdefault("by_shape", {})[str(shape)] = {
+                        "ms": ms, "plain_ms": p_ms, "library_ms": l_ms,
+                        "bound_ms": bound, "calls": main[shape]}
+                if case.nbytes >= r.get("bytes", -1):
+                    r.update(shape=list(shape), ms=ms, plain_ms=p_ms,
+                             library_ms=l_ms, bound_ms=bound,
+                             bytes=case.nbytes, ops=case.ops)
+    routes = {k: n for k, n in hh.launches.items()
+              if k.endswith(tuple(f"_{r}" for r in hh.ROUTES))}
+    print(f"[kernel] panel routes in this phase: {json.dumps(routes)}")
     routes = {k: n for k, n in wy.launches.items() if "_copy" in k}
     print(f"[kernel] wy pass 1 copy routes in this phase: {routes}")
     for k in ("wy_vta_copy16", "wy_vta_copy4", "wy_vta_batched_copy16",
@@ -1469,6 +1546,7 @@ ENGINE_ROWS = [
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("[chip_smoke] no CUDA device available", file=sys.stderr)
         return 2
@@ -1586,6 +1664,9 @@ def main() -> int:
             "library_ms": r["library_ms"],
             "timed": f"one call at the largest main-path shape {r['shape']}",
             **{k: r[k] for k in ("by_shape", "ptxas", "layout") if k in r},
+            **({"routes": {route: engine_counts.get(f"{keys[0]}_{route}", 0)
+                           for route in ("smem", "tsqr", "sweep")}}
+               if name.startswith("panel") else {}),
         })
     for dtype, run in ((torch.bfloat16, "dense/pallas"),
                        (torch.float32, "dense_f32/pallas")):
@@ -1637,6 +1718,7 @@ def main() -> int:
             "f32_oracle": p.get("f32_oracle")}
         for w, p in paths.items()}
     print(f"[chip_smoke] main path summary: {json.dumps(summary)}")
+    print(f"[chip_smoke] total {time.perf_counter() - t_start:.1f}s")
     if FAILURES:
         print(f"[chip_smoke] {len(FAILURES)} failed check(s): {FAILURES}")
         return 1

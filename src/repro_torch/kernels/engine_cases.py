@@ -11,7 +11,11 @@ One table of shapes and one way to draw a case's inputs, shared by
 
   * ``"panel"`` (m, b) and ``"panel_batched"`` (B, m, b): Householder panel
     factor (V, τ, R); the panel is a row-strided view, as ``qr_blocked``
-    hands it over, with one zero column (the ``safe`` branch);
+    hands it over, filled as ``fill`` says (``PANEL_FILLS``): ``"dense"``
+    (the main path's panels), ``"padded"`` (the last ``padded_zeros(b)``
+    columns exactly zero, as ``qr_blocked`` pads N to a multiple of 32) or
+    ``"interior_zero"`` (the first column zero, nonzero ones after it: the
+    ``safe`` branch inside the panel; ragged shapes only);
   * ``"wy_vta"`` (m, n, b) / ``"wy_vta_batched"`` (B, m, n, b): Y = Vᵀ A;
   * ``"wy_apply"`` (m, n, b) / ``"wy_apply_batched"`` (B, m, n, b): A − V W;
     A is the trailing block of a wider matrix, as blocked QR hands it over:
@@ -24,7 +28,22 @@ One table of shapes and one way to draw a case's inputs, shared by
     (tail norms, rank); the rank is compared exactly.
 
 Each case also carries the bytes its function must move (each input read
-once, each output written once) and the operations it does, for the bound.
+once, each output written once) and the operations it does, for the bound,
+and its inputs.
+
+``compare`` holds every inexact output to ``tol``·max|ref|, and a panel
+also to these bounds (all in float64, each tighter than that max check):
+
+  * V per column: ||V[:, j] − V_ref[:, j]|| <= PANEL_V_COL·||V_ref[:, j]||
+    (a zero column of V_ref must be exactly zero);
+  * τ per element: |τ − τ_ref| <= PANEL_TAU (τ lies in [1, 2], or is 0);
+  * R per row: ||R[i] − R_ref[i]|| <= PANEL_R_ROW·||R_ref[i]|| (zero rows
+    exactly zero);
+  * the factorization it returns (``panel_quality``: Q = (I − V T Vᵀ)[:, :b]
+    through ``build_t``): the residual ||A − Q R|| / ||A|| and
+    max|I − QᵀQ| each within PANEL_FACTOR times the plain version's, or
+    PANEL_FLOOR (8 float32 ulps of 1) where that is larger, and within
+    PANEL_SMALL at panels of up to PANEL_SMALL_ROWS rows.
 
 ``wy_inputs(shape, gen, device, aligned, ints=True)`` draws pass 1's inputs
 with entries in {−1, 0, 1}: every partial sum is then an integer far below
@@ -75,6 +94,15 @@ RAGGED_SHAPES = {
 }
 
 
+PANEL_FILLS = ("dense", "padded", "interior_zero")
+PANEL_V_COL = 1e-5
+PANEL_TAU = 1e-5
+PANEL_R_ROW = 1e-5
+PANEL_FACTOR = 2.0
+PANEL_FLOOR = 8 * 2.0 ** -24
+PANEL_SMALL, PANEL_SMALL_ROWS = 1e-5, 24_576
+
+
 @dataclass
 class Case:
     kind: str
@@ -85,18 +113,59 @@ class Case:
     exact: Tuple[bool, ...]          # per output: compared exactly
     nbytes: int
     ops: int
+    inputs: tuple = ()
 
     @property
     def counter(self) -> str:
         return COUNTERS[self.kind][1]
 
 
-def _panel_input(shape, gen, device):
-    """A row-strided (…, m, b) view with a zero column."""
+def padded_zeros(b: int) -> int:
+    """The trailing zero columns of a ``"padded"`` panel of width b."""
+    return max(1, b // 4)
+
+
+def _panel_input(shape, gen, device, fill: str = "dense"):
+    """A row-strided (…, m, b) view of a wider matrix, filled as ``fill``
+    says (``PANEL_FILLS``)."""
+    if fill not in PANEL_FILLS:
+        raise ValueError(f"unknown panel fill {fill!r}")
     *lead, m, b = shape
     base = torch.randn(*lead, m, b + 3, generator=gen, device=device)
-    base[..., :, min(1, b - 1)] = 0.0
-    return base[..., :, 1:b + 1] if b > 1 else base[..., :, :b]
+    if fill == "interior_zero":
+        base[..., :, min(1, b - 1)] = 0.0
+    view = base[..., :, 1:b + 1] if b > 1 else base[..., :, :b]
+    if fill == "padded":
+        view[..., :, b - padded_zeros(b):] = 0.0
+    return view
+
+
+def panel_route(shape, fill: str, smem_rows: int) -> str:
+    """The route ``householder.ops`` takes for a panel case: ``"smem"`` up
+    to ``smem_rows`` rows, else ``"sweep"`` for a zero column before a
+    nonzero one and ``"tsqr"`` for the rest."""
+    if shape[-2] <= smem_rows:
+        return "smem"
+    return "sweep" if fill == "interior_zero" and shape[-1] > 1 else "tsqr"
+
+
+def panel_quality(a, v, tau, r):
+    """(||A − Q R|| / ||A||, max|I − QᵀQ|) in float64 of a panel
+    factorization, Q = (I − V T Vᵀ)[:, :min(M, b)] with T from
+    ``build_t``; a leading batch is reduced to its worst member."""
+    vd = v.double()
+    m, b = vd.shape[-2:]
+    k = min(m, b)                # thin Q's columns; R's rows past M are 0
+    t = hh.build_t(vd, tau.double())
+    q = -(vd @ (t @ vd[..., :k, :].transpose(-1, -2)))
+    q[..., :k, :] += torch.eye(k, dtype=torch.float64, device=q.device)
+    ad = a.double()
+    res = (torch.linalg.vector_norm(q @ r.double()[..., :k, :] - ad,
+                                    dim=(-2, -1))
+           / torch.linalg.vector_norm(ad, dim=(-2, -1)).clamp_min(1e-300))
+    eye = torch.eye(k, dtype=torch.float64, device=q.device)
+    orth = (q.transpose(-1, -2) @ q - eye).abs().amax(dim=(-2, -1))
+    return float(res.max()), float(orth.max())
 
 
 ALIGNED_PAD, MISALIGNED_PAD = 32, 5
@@ -131,12 +200,12 @@ def vta_route(kind: str, shape, aligned: bool) -> str:
 
 
 def engine_case(kind: str, shape, gen: torch.Generator, device,
-                aligned: bool = True) -> Case:
+                aligned: bool = True, fill: str = "dense") -> Case:
     def rn(*s):
         return torch.randn(*s, generator=gen, device=device)
 
     if kind in ("panel", "panel_batched"):
-        a = _panel_input(shape, gen, device)
+        a = _panel_input(shape, gen, device, fill)
         *lead, m, b = shape
         nb = math.prod(lead) if lead else 1
         flops = nb * max(2 * m * b * b - 2 * b ** 3 // 3, m * b)
@@ -145,7 +214,8 @@ def engine_case(kind: str, shape, gen: torch.Generator, device,
         ac = a.contiguous()
         return Case(kind, tuple(shape), lambda: fn(a),
                     lambda: hh.panel_factor_plain(a),
-                    lambda: torch.geqrf(ac), (False,) * 3, nbytes, flops)
+                    lambda: torch.geqrf(ac), (False,) * 3, nbytes, flops,
+                    (a,))
 
     if kind.startswith("wy_"):
         *lead, m, n, b = shape
@@ -206,9 +276,43 @@ def engine_case(kind: str, shape, gen: torch.Generator, device,
     raise ValueError(f"unknown engine kernel kind {kind!r}")
 
 
+def _panel_gaps(case: Case, got: tuple, ref: tuple):
+    """(ok, report) of the panel bounds (module docstring)."""
+    (v, tau, r), (vr, taur, rr) = got, ref
+    v, vr, r, rr = v.double(), vr.double(), r.double(), rr.double()
+
+    def rel(diff, scale):
+        zero = scale == 0
+        if bool((zero & (diff != 0)).any()):
+            return float("inf")
+        return float((diff / torch.where(zero, 1.0, scale)).max()) \
+            if diff.numel() else 0.0
+
+    col = rel(torch.linalg.vector_norm(v - vr, dim=-2),
+              torch.linalg.vector_norm(vr, dim=-2))
+    dtau = float((tau.double() - taur.double()).abs().max()) \
+        if tau.numel() else 0.0
+    row = rel(torch.linalg.vector_norm(r - rr, dim=-1),
+              torch.linalg.vector_norm(rr, dim=-1))
+    (a,) = case.inputs
+    res, orth = panel_quality(a, *got)
+    res_p, orth_p = panel_quality(a, *ref)
+    cap_res = max(PANEL_FACTOR * res_p, PANEL_FLOOR)
+    cap_orth = max(PANEL_FACTOR * orth_p, PANEL_FLOOR)
+    if case.shape[-2] <= PANEL_SMALL_ROWS:
+        cap_res, cap_orth = min(cap_res, PANEL_SMALL), min(cap_orth,
+                                                           PANEL_SMALL)
+    ok = (col <= PANEL_V_COL and dtau <= PANEL_TAU and row <= PANEL_R_ROW
+          and res <= cap_res and orth <= cap_orth)
+    return ok, (f"V col {col:.2e}, tau {dtau:.2e}, R row {row:.2e}, "
+                f"residual {res:.2e} (plain {res_p:.2e}), "
+                f"orth {orth:.2e} (plain {orth_p:.2e})")
+
+
 def compare(case: Case, got: tuple, ref: tuple, tol: float):
     """(ok, max|Δ| over the inexact outputs, per-output report).  Inexact
-    outputs pass at max|Δ| <= tol · max|ref|; exact ones must be equal."""
+    outputs pass at max|Δ| <= tol · max|ref|; exact ones must be equal; a
+    panel must also meet the panel bounds (module docstring)."""
     ok, worst, parts = True, 0.0, []
     for g, r, exact in zip(got, ref, case.exact):
         if exact:
@@ -222,4 +326,8 @@ def compare(case: Case, got: tuple, ref: tuple, tol: float):
         ok &= err <= tol * scale
         worst = max(worst, err)
         parts.append(f"{err:.2e}/{scale:.2e}")
+    if case.kind in ("panel", "panel_batched"):
+        good, report = _panel_gaps(case, got, ref)
+        ok &= good
+        parts.append(report)
     return ok, worst, parts

@@ -6,11 +6,23 @@ blocked QR built from the TTD engine's kernels.
     build_t(V, τ)                       → T with H_1 … H_b = I − V T Vᵀ
     qr_blocked(a (…, M, N), panel=32)   → (Q thin (…, M, N), R (…, N, N))
 
-For CUDA tensors the panel wrappers launch ``csrc/householder.cu``: the
-one-block form with the panel in shared memory when it fits
-(``smem_rows``), else the streamed form (2b + 1 CUDA launches, counted as
-one factorization in ``launches``).  For tensors on the CPU they run the
-plain version in ``ref.py``.  A failed build or launch raises.  The panel
+For CUDA tensors the panel wrappers launch ``csrc/householder.cu`` by one
+of three routes, each counted in ``launches`` as ``<wrapper>_<route>``
+beside the wrapper's total:
+
+  * ``smem``: the one-block form with the panel in shared memory, when it
+    fits (``smem_rows``);
+  * ``tsqr``: taller panels, by TSQR with Householder reconstruction (three
+    CUDA launches whatever the height: leaf chains, tree and top block,
+    apply); the leaf pass reports which columns hold a nonzero, and the
+    wrapper reads that back (one host sync) to pick the route;
+  * ``sweep``: taller panels with an exactly zero column before a nonzero
+    one, which the reconstruction cannot reproduce: the column-by-column
+    sweep (2b + 1 launches).  Chosen by the data, never after a failure.
+
+For tensors on the CPU they run the plain version in ``ref.py``
+(``panel_factor_tsqr`` there renders the ``tsqr`` route in PyTorch for the
+tests).  A failed build or launch raises.  The panel
 may be a row-strided view (last stride 1), so ``qr_blocked`` hands the
 kernel the active sub-view ``A[c0:, c0:c0+b]`` itself.  ``"plain_on_cuda"``
 counts calls of the plain version with a CUDA tensor.  The kernels take
@@ -28,11 +40,17 @@ import torch
 
 from repro_torch.kernels import build as _build
 from repro_torch.kernels.block_update import ops as _wy
-from repro_torch.kernels.householder.ref import build_t, panel_factor_ref
+from repro_torch.kernels.householder.ref import (
+    build_t, leading_columns, panel_factor_ref, panel_factor_tsqr, tsqr_plan,
+)
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "householder.cu"
 KERNELS = ("panel_factor", "panel_factor_batched")
+ROUTES = ("smem", "tsqr", "sweep")
 MAX_B = 32
+TILE_ROWS = 512          # rows of one TSQR leaf step (kTile in the source)
+TREE_ROWS = 1024         # rows of one TSQR tree step (kTreeTile)
+TSQR_CHAINS = 264        # leaf chains a launch: two blocks on each of 132 SMs
 
 launches: collections.Counter = collections.Counter()
 
@@ -49,9 +67,19 @@ def reset_launches() -> None:
 def _lib() -> ctypes.CDLL:
     lib = _build.load_bound(SOURCE, {
         "panel_factor_smem": [_P, _L, _L, _P, _P, _P, _I, _I, _I, _P],
-        "panel_factor_stream": [_P, _L, _L] + [_P] * 5 + [_I] * 5 + [_P]})
+        "panel_factor_stream": [_P, _L, _L] + [_P] * 5 + [_I] * 5 + [_P],
+        "panel_factor_tsqr_leaf": [_P, _L, _L, _P, _P] + [_I] * 6 + [_P],
+        "panel_factor_tsqr_finish": [_P] * 4 + [_I] * 6 + [_P]})
     lib.max_shared_bytes.restype = _I
     lib.panel_smem_static_bytes.restype = _I
+    for fn in (lib.tsqr_scratch_bytes, lib.tsqr_masks_offset):
+        fn.argtypes = [_I, _I, _I]
+        fn.restype = _L
+    lib.tsqr_tile_rows.restype = _I
+    lib.tsqr_tree_rows.restype = _I
+    if (lib.tsqr_tile_rows(), lib.tsqr_tree_rows()) != (TILE_ROWS, TREE_ROWS):
+        raise RuntimeError("householder.cu's TSQR steps differ from "
+                           f"TILE_ROWS, TREE_ROWS = {TILE_ROWS}, {TREE_ROWS}")
     return lib
 
 
@@ -73,11 +101,49 @@ def smem_rows(b: int) -> int:
 
 
 def stream_plan(m: int, batch: int):
-    """(rows per block, blocks per member) for the streamed form."""
+    """(rows per block, blocks per member) for the sweep route."""
     want = max(1, -(-_TARGET_BLOCKS // batch))
     rpb = -(-m // want)
     rpb = -(-rpb // _SWEEP_ROWS) * _SWEEP_ROWS
     return rpb, -(-m // rpb)
+
+
+def _sweep(lib, a3, v, tau, r, stream) -> int:
+    bsz, m, b = a3.shape
+    rpb, nblk = stream_plan(m, bsz)
+    scal = torch.empty((bsz, 40), dtype=torch.float32, device=a3.device)
+    part = torch.empty((bsz, nblk, 32), dtype=torch.float32, device=a3.device)
+    tau.zero_()
+    r.zero_()
+    return lib.panel_factor_stream(
+        a3.data_ptr(), a3.stride(1), a3.stride(0), v.data_ptr(),
+        tau.data_ptr(), r.data_ptr(), scal.data_ptr(), part.data_ptr(), bsz,
+        m, b, rpb, nblk, stream)
+
+
+def _streamed(lib, a3, v, tau, r, stream, name) -> str:
+    """A panel taller than ``smem_rows``: the leaf pass of the TSQR route,
+    then its finish, or the sweep where a zero column precedes a nonzero
+    one (in any member).  Returns the route."""
+    bsz, m, b = a3.shape
+    tpb, nblk, ntiles = tsqr_plan(m, bsz, TILE_ROWS, TSQR_CHAINS)
+    scratch = torch.empty(lib.tsqr_scratch_bytes(bsz, ntiles, nblk),
+                          dtype=torch.uint8, device=a3.device)
+    code = lib.panel_factor_tsqr_leaf(
+        a3.data_ptr(), a3.stride(1), a3.stride(0), v.data_ptr(),
+        scratch.data_ptr(), bsz, m, b, tpb, ntiles, nblk, stream)
+    _build.raise_on(lib, code, name)
+    at = lib.tsqr_masks_offset(bsz, ntiles, nblk)
+    masks = scratch[at:at + 4 * bsz * nblk].view(torch.int32)
+    per_member = masks.reshape(bsz, nblk).cpu()
+    if not all(leading_columns(row) for row in per_member.tolist()):
+        _build.raise_on(lib, _sweep(lib, a3, v, tau, r, stream), name)
+        return "sweep"
+    code = lib.panel_factor_tsqr_finish(
+        v.data_ptr(), tau.data_ptr(), r.data_ptr(), scratch.data_ptr(), bsz,
+        m, b, tpb, ntiles, nblk, stream)
+    _build.raise_on(lib, code, name)
+    return "tsqr"
 
 
 def _launch(a3: torch.Tensor, name: str):
@@ -92,27 +158,25 @@ def _launch(a3: torch.Tensor, name: str):
         raise ValueError(f"{name}: panel {tuple(a3.shape)} too large")
     dev = a3.device
     v = torch.empty((bsz, m, b), dtype=torch.float32, device=dev)
-    tau = torch.zeros((bsz, b), dtype=torch.float32, device=dev)
-    r = torch.zeros((bsz, b, b), dtype=torch.float32, device=dev)
+    tau = torch.empty((bsz, b), dtype=torch.float32, device=dev)
+    r = torch.empty((bsz, b, b), dtype=torch.float32, device=dev)
     if bsz == 0 or b == 0 or m == 0:
-        return v, tau, r
-    lds, sbs = a3.stride(1), a3.stride(0)
+        return v, tau.zero_(), r.zero_()
     stream = torch.cuda.current_stream(dev).cuda_stream
     lib = _lib()
     if m <= smem_rows(b):
-        code = lib.panel_factor_smem(a3.data_ptr(), lds, sbs, v.data_ptr(),
+        tau.zero_()
+        r.zero_()
+        code = lib.panel_factor_smem(a3.data_ptr(), a3.stride(1),
+                                     a3.stride(0), v.data_ptr(),
                                      tau.data_ptr(), r.data_ptr(), bsz, m, b,
                                      stream)
+        _build.raise_on(lib, code, name)
+        route = "smem"
     else:
-        rpb, nblk = stream_plan(m, bsz)
-        scal = torch.empty((bsz, 40), dtype=torch.float32, device=dev)
-        part = torch.empty((bsz, nblk, 32), dtype=torch.float32, device=dev)
-        code = lib.panel_factor_stream(
-            a3.data_ptr(), lds, sbs, v.data_ptr(), tau.data_ptr(),
-            r.data_ptr(), scal.data_ptr(), part.data_ptr(), bsz, m, b, rpb,
-            nblk, stream)
-    _build.raise_on(lib, code, name)
+        route = _streamed(lib, a3, v, tau, r, stream, name)
     launches[name] += 1
+    launches[f"{name}_{route}"] += 1
     return v, tau, r
 
 
@@ -201,7 +265,9 @@ def qr_blocked(a: torch.Tensor, panel: int = 32):
 
 
 __all__ = [
-    "KERNELS", "MAX_B", "build", "build_t", "launches", "panel_factor",
-    "panel_factor_batched", "panel_factor_plain", "panel_factor_ref",
-    "qr_blocked", "reset_launches", "smem_rows", "stream_plan",
+    "KERNELS", "MAX_B", "ROUTES", "TILE_ROWS", "TREE_ROWS", "TSQR_CHAINS",
+    "build",
+    "build_t", "launches", "panel_factor", "panel_factor_batched",
+    "panel_factor_plain", "panel_factor_ref", "panel_factor_tsqr",
+    "qr_blocked", "reset_launches", "smem_rows", "stream_plan", "tsqr_plan",
 ]

@@ -11,7 +11,16 @@
   at full-width shapes, ResNet-32's batched shapes, ragged shapes and
   panels on either side of the shared-memory limit: 2e-4·max|ref|, sorted
   σ, index vectors and ranks exactly equal; and the blocked QR built on
-  them.  The WY cases' A is a trailing view of a wider matrix: 16-byte
+  them.  Panels also within ``compare``'s panel bounds (V per column, τ,
+  R per row, the float64 residual and orthogonality); dense, padded
+  (trailing zero columns: V, τ and R exactly zero there) and interior-zero
+  fills, each counted under the route it must take (``smem`` up to
+  ``smem_rows``, ``tsqr`` above, ``sweep`` for an interior zero column);
+  the TSQR route also against its tile-wise plain version
+  ``panel_factor_tsqr`` at ``smem_rows(32)`` + {1, 4,096} and 2,883,584
+  rows; repeat calls bit-identical.  The sort equal to
+  ``torch.sort(stable=True)`` bit for bit, values and indices, on rows with
+  ties at n in {1, 5, 100, 2,816, 4,096, 7,680}, single and batched.  The WY cases' A is a trailing view of a wider matrix: 16-byte
   aligned at the full-width shapes (as blocked QR's views), misaligned
   (offset 5) at the ragged ones, and pass 1 must take the matching copy
   route.  Pass 1 also on integer inputs in {−1, 0, 1} at every shape, both
@@ -45,6 +54,8 @@ from repro_torch.kernels.block_update import ops as wy
 from repro_torch.kernels.flash_attention import cases as flash_cases
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.householder import ops as hh
+from repro_torch.kernels.householder import ref as href
+from repro_torch.kernels.singular_sort import ops as ss
 from repro_torch.kernels.tt_contract import cases, ops
 
 
@@ -154,7 +165,10 @@ ENGINE_CASES = [(kind, shape, aligned)
 def test_engine_kernels_match_plain_on_card(cuda_device, kind, shape,
                                             aligned):
     gen = torch.Generator(device=cuda_device).manual_seed(0)
-    case = ec.engine_case(kind, shape, gen, cuda_device, aligned)
+    # the main path's panels are dense; the ragged ones keep an interior
+    # zero column (the safe branch)
+    case = ec.engine_case(kind, shape, gen, cuda_device, aligned,
+                          fill="dense" if aligned else "interior_zero")
     mod, counter = ec.COUNTERS[kind]
     before = dict(mod.launches)
     got, ref = case.kernel(), case.plain()
@@ -219,6 +233,85 @@ def test_panel_on_either_side_of_shared_memory(cuda_device, delta):
     case = ec.engine_case("panel", (rows, 32), gen, cuda_device)
     ok, _, parts = ec.compare(case, case.kernel(), case.plain(), 2e-4)
     assert ok, (rows, parts)
+
+
+PANEL_FILL_CASES = [(kind, shape, fill)
+                    for kind in ("panel", "panel_batched")
+                    for shape in ec.RAGGED_SHAPES[kind]
+                    for fill in ec.PANEL_FILLS] + [
+    ("panel", (2_883_584, 32), "dense"), ("panel", (2_883_584, 32), "padded"),
+    ("panel_batched", (9, 4096, 32), "padded")]
+
+
+def _moved(before, after):
+    return {k: n - before.get(k, 0) for k, n in after.items()
+            if n != before.get(k, 0)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,shape,fill", PANEL_FILL_CASES)
+def test_panel_fills_take_their_route_on_card(cuda_device, kind, shape,
+                                              fill):
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    case = ec.engine_case(kind, shape, gen, cuda_device, fill=fill)
+    counter = ec.COUNTERS[kind][1]
+    route = ec.panel_route(shape, fill, hh.smem_rows(shape[-1]))
+    before = dict(hh.launches)
+    got = case.kernel()
+    torch.cuda.synchronize()
+    assert _moved(before, hh.launches) == {counter: 1,
+                                           f"{counter}_{route}": 1}
+    ok, _, parts = ec.compare(case, got, case.plain(), 2e-4)
+    assert ok, (kind, shape, fill, parts)
+    if fill == "padded":
+        z = ec.padded_zeros(shape[-1])
+        v, tau, r = got
+        assert not v[..., -z:].any() and not tau[..., -z:].any()
+        assert not r[..., -z:, :].any() and not r[..., :, -z:].any()
+    again = case.kernel()
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("extra", [1, 4_096, 2_883_584])
+def test_panel_tsqr_matches_both_plain_versions_on_card(cuda_device, extra):
+    """The TSQR route against the sequential plain version and against its
+    own tile-wise plain version, both within ``compare``'s bounds."""
+    m = extra if extra > 4_096 else hh.smem_rows(32) + extra
+    gen = torch.Generator(device=cuda_device).manual_seed(4)
+    case = ec.engine_case("panel", (m, 32), gen, cuda_device)
+    before = dict(hh.launches)
+    got = case.kernel()
+    assert _moved(before, hh.launches) == {"panel_factor": 1,
+                                           "panel_factor_tsqr": 1}
+    (a,) = case.inputs
+    for ref in (case.plain(), href.panel_factor_tsqr(a, hh.TILE_ROWS,
+                                                     hh.TSQR_CHAINS)):
+        ok, _, parts = ec.compare(case, got, ref, 2e-4)
+        assert ok, (m, parts)
+    assert all(torch.equal(x, y) for x, y in zip(got, case.kernel()))
+
+
+SORT_SHAPES = [(1,), (5,), (100,), (2_816,), (4_096,), (7_680,),
+               (4, 5), (3, 100), (9, 64), (2, 2_816), (2, 4_096),
+               (2, 7_680)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", SORT_SHAPES, ids=str)
+def test_sort_equals_torch_sort_on_card(cuda_device, shape):
+    """Rows with many ties: the values and the index vector equal a stable
+    descending torch.sort bit for bit."""
+    gen = torch.Generator(device=cuda_device).manual_seed(8)
+    n = shape[-1]
+    s = torch.randint(0, max(n // 4, 2), shape, generator=gen,
+                      device=cuda_device).float() * 0.25
+    fn = (ss.sort_singular_values if len(shape) == 1
+          else ss.sort_singular_values_batched)
+    got_s, got_i = fn(s)
+    ref = torch.sort(s, dim=-1, descending=True, stable=True)
+    assert torch.equal(got_s.view(torch.int32), ref.values.view(torch.int32))
+    assert torch.equal(got_i, ref.indices)
 
 
 @pytest.mark.cuda

@@ -4,6 +4,8 @@ to compare two checkouts on one card.
     python3 tools/kernel_time.py [--src DIR] [--case flash]
     python3 tools/kernel_time.py [--src DIR] --case wy_vta \
         [--shape M,N,B[,PAD]] ...
+    python3 tools/kernel_time.py [--src DIR] --case panel [--shape [B,]M,b]
+    python3 tools/kernel_time.py [--src DIR] --case sort [--shape [B,]n]
 
 ``--src`` is the ``src`` directory whose ``repro_torch`` is imported (and
 whose kernels are built; default: this checkout's).  Each case prints one
@@ -26,6 +28,20 @@ calls (``tools/cuda_timing.time_ms``) and the card's name:
   pass 1's kernels.  Default shapes: the largest main-path shape
   (19,447,808 x 32, B 32, a contiguous Q formation) and 24,576 x 2,784
   (B 32, the first trailing update of a 2,816-column matrix, PAD 32).
+* ``panel``: the Householder panel factor through ``panel_factor`` (or
+  ``panel_factor_batched`` with a leading B), the (M, b) panel a view at
+  column 32 of a unit-normal (M, b + 32) matrix from seed 2, as blocked QR
+  hands it over; beside it one ``torch.geqrf`` of a contiguous copy (the
+  library yardstick), the device time of each kernel either launches, the
+  routes counted (where the checkout counts them) and ptxas's report of the
+  panel kernels.  Default shapes: 19,447,808 x 32 (the largest main-path
+  panel) and 24,576 x 32.
+* ``sort``: the singular-value sort through ``sort_singular_values`` (or
+  ``_batched`` with a leading B), σ in {0, 0.25, ...} from seed 2 (many
+  ties); beside it one ``torch.sort(..., descending=True, stable=True)``,
+  whether the two agree bit for bit, device times and ptxas's report.
+  Default shapes: n = 2,816 (qwen1.5-0.5b's longest σ) and 9 x 64
+  (ResNet-32's batched bucket).
 
 Run it once per checkout and side, alternating the sides (parent, change,
 change, parent), in one call on one card.
@@ -38,6 +54,8 @@ import sys
 
 TOOLS = os.path.dirname(os.path.abspath(__file__))
 WY_SHAPES = ["19447808,32,32,0", "24576,2784,32,32"]
+PANEL_SHAPES = ["19447808,32", "24576,32"]
+SORT_SHAPES = ["2816", "9,64"]
 
 
 def flash(build, torch, time_ms, src):
@@ -86,12 +104,82 @@ def wy_vta(build, torch, time_ms, device_ms, src, shapes):
         torch.cuda.empty_cache()
 
 
+def _ptxas(build, source, *names):
+    return {fn: use for fn, use in build.ptxas_usage(source).items()
+            if any(n in fn for n in names)}
+
+
+def _shape(spec):
+    dims = [int(x) for x in spec.split(",")]
+    return dims[:-1], dims[-1]
+
+
+def panel(build, torch, time_ms, device_ms, src, shapes):
+    from repro_torch.kernels.householder import ops
+    for spec in shapes:
+        lead, b = _shape(spec)
+        *batch, m = lead
+        gen = torch.Generator(device="cuda").manual_seed(2)
+        a = torch.randn(*batch, m, b + 32, generator=gen,
+                        device="cuda")[..., 32:]
+        fn = ops.panel_factor_batched if batch else ops.panel_factor
+        ac = a.contiguous()
+        ops.launches.clear()
+        fn(a)
+        routes = dict(ops.launches)
+        ms = time_ms(lambda: fn(a), reps=10)
+        lib_ms = time_ms(lambda: torch.geqrf(ac), reps=5)
+        dev = device_ms(lambda: fn(a), calls=3)
+        lib_dev = device_ms(lambda: torch.geqrf(ac), calls=2)
+        print(json.dumps({"src": src, "case": "panel",
+                          "shape": [*batch, m, b], "ms": ms,
+                          "library_ms": lib_ms,
+                          "device_ms": sum(dev.values()),
+                          "library_device_ms": sum(lib_dev.values()),
+                          "device_by_kernel": dev, "routes": routes,
+                          "ptxas": _ptxas(build, ops.SOURCE, "panel_"),
+                          "device": torch.cuda.get_device_name(0)}))
+        del a, ac
+        torch.cuda.empty_cache()
+
+
+def sort(build, torch, time_ms, device_ms, src, shapes):
+    from repro_torch.kernels.singular_sort import ops
+    for spec in shapes:
+        batch, n = _shape(spec)
+        gen = torch.Generator(device="cuda").manual_seed(2)
+        s = torch.randint(0, max(n // 4, 2), (*batch, n), generator=gen,
+                          device="cuda").float() * 0.25
+        fn = (ops.sort_singular_values_batched if batch
+              else ops.sort_singular_values)
+
+        def lib():
+            return torch.sort(s, dim=-1, descending=True, stable=True)
+
+        got, ref = fn(s), lib()
+        equal = (torch.equal(got[0], ref.values)
+                 and torch.equal(got[1], ref.indices))
+        dev, lib_dev = device_ms(lambda: fn(s)), device_ms(lib)
+        print(json.dumps({"src": src, "case": "sort", "shape": [*batch, n],
+                          "ms": time_ms(lambda: fn(s)),
+                          "library_ms": time_ms(lib),
+                          "device_ms": sum(dev.values()),
+                          "library_device_ms": sum(lib_dev.values()),
+                          "device_by_kernel": dev,
+                          "library_device_by_kernel": lib_dev,
+                          "equal_to_library": equal,
+                          "ptxas": _ptxas(build, ops.SOURCE, "bitonic"),
+                          "device": torch.cuda.get_device_name(0)}))
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--src", default=os.path.join(TOOLS, "..", "src"))
-    ap.add_argument("--case", choices=("flash", "wy_vta"), default="flash")
+    ap.add_argument("--case", choices=("flash", "wy_vta", "panel", "sort"),
+                    default="flash")
     ap.add_argument("--shape", action="append",
-                    help="wy_vta: M,N,B[,PAD] (repeatable)")
+                    help="wy_vta: M,N,B[,PAD]; panel: [B,]M,b; sort: "
+                         "[B,]n (repeatable)")
     args = ap.parse_args()
     sys.path.insert(0, os.path.abspath(args.src))
     sys.path.insert(0, TOOLS)
@@ -105,9 +193,15 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     if args.case == "flash":
         flash(build, torch, time_ms, args.src)
-    else:
+    elif args.case == "wy_vta":
         wy_vta(build, torch, time_ms, device_ms, args.src,
                args.shape or WY_SHAPES)
+    elif args.case == "panel":
+        panel(build, torch, time_ms, device_ms, args.src,
+              args.shape or PANEL_SHAPES)
+    else:
+        sort(build, torch, time_ms, device_ms, args.src,
+             args.shape or SORT_SHAPES)
 
 
 if __name__ == "__main__":
