@@ -813,7 +813,7 @@ def vta_layout() -> dict:
     return {"ptxas": usage, "layout": lay}
 
 
-def panel_route_check(case, fill: str, got, before: dict, limit: int):
+def panel_route_check(case, fill: str, got, before: dict):
     """A panel case launched once, counted under the route its fill and
     height pick (``engine_cases.panel_route``; the comparison's plain call
     counts apart); trailing zero columns exactly zero in V, τ and R; a
@@ -821,7 +821,7 @@ def panel_route_check(case, fill: str, got, before: dict, limit: int):
     from repro_torch.kernels import engine_cases as ec
     from repro_torch.kernels.householder import ops as hh
     counter = ec.COUNTERS[case.kind][1]
-    route = ec.panel_route(case.shape, fill, limit)
+    route = ec.panel_route(case.shape, fill, hh.smem_rows(case.shape[-1]))
     moved = {k: n - before.get(k, 0) for k, n in hh.launches.items()
              if n != before.get(k, 0) and k != "plain_on_cuda"}
     check(moved == {counter: 1, f"{counter}_{route}": 1},
@@ -876,7 +876,7 @@ def engine_kernel_phase(shapes: dict) -> dict:
                 check(ok, f"{kind} {shape} {fill} disagrees with its plain "
                           f"version {parts}")
                 if kind.startswith("panel"):
-                    panel_route_check(case, fill, got, before, limit)
+                    panel_route_check(case, fill, got, before)
                 line = (f"[kernel] {kind} {shape}"
                         f"{f' {fill}' if kind.startswith('panel') else ''}: "
                         f"{parts} {'ok' if ok else 'FAIL'}")
