@@ -150,7 +150,7 @@ sys.path.insert(0, str(ROOT / "tools"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from cuda_timing import PhaseTimers, kernel_ms, time_ms  # noqa: E402
+from cuda_timing import PhaseTimers, gap_ms, kernel_ms, time_ms  # noqa: E402
 
 # H100 SXM published peaks (NVIDIA data sheet, 700 W): HBM bytes/s and f32
 # FLOP/s outside the tensor cores (the kernels' FFMA path)
@@ -564,13 +564,20 @@ def device_profile(prof, wall_s: float) -> dict:
         hit = [v for k, v in by_name.items() if any(x in k for x in keys)]
         panel[route] = {"ms": sum(v[0] for v in hit),
                         "launches": sum(v[1] for v in hit)}
+    # the TSQR route's host read: the device waits from the end of each
+    # leaf pass to the start of its tree (the masks' copy to the host and
+    # the finish's launch); the host waits for the leaf pass
+    pairs, gap = gap_ms(prof, "panel_tsqr_leaf", "panel_tsqr_tree")
+    leaf = [v for k, v in by_name.items() if "panel_tsqr_leaf" in k]
+    read = {"panels": pairs, "gap_ms": gap,
+            "leaf_ms": sum(v[0] for v in leaf)}
     engine_names = [k for k in by_name if any(
         x in k for keys in ENGINE_KERNELS.values() for x in keys)]
     rest = sorted(((k, v) for k, v in by_name.items()
                    if k not in engine_names), key=lambda kv: -kv[1][0])
     return {"wall_s": wall_s, "device_busy_ms": busy,
             "launches": sum(n for _, n in by_name.values()),
-            "engine": engine, "panel_by_route": panel,
+            "engine": engine, "panel_by_route": panel, "tsqr_read": read,
             "top_other": [[k[:70], n, ms] for k, (ms, n) in rest[:8]]}
 
 
@@ -627,6 +634,7 @@ def engine_fullwidth(serve_mod, main_tt: dict) -> dict:
           f"{json.dumps({k: [v['ms'], v['launches'], v['share']] for k, v in dprof['engine'].items()})}; "
           f"panel factor by route [ms, launches] "
           f"{json.dumps({k: [v['ms'], v['launches']] for k, v in dprof['panel_by_route'].items()})}; "
+          f"TSQR host read {json.dumps(dprof['tsqr_read'])}; "
           f"top other kernels [name, launches, ms] "
           f"{json.dumps(dprof['top_other'])} (read in "
           f"{time.perf_counter() - t0:.1f}s)")

@@ -319,7 +319,7 @@ __global__ void __launch_bounds__(kSweepThreads) panel_finalize_kernel(
 // ---------------------------------------------------------------------------
 
 constexpr int kLeafThreads = 256;                // leaf and apply blocks
-constexpr int kTreeThreads = 512;                // the tree's block
+constexpr int kTreeThreads = 2 * kLeafThreads;   // the tree's block
 constexpr int kRows = 2;                         // rows a thread holds
 constexpr int kTile = kLeafThreads * kRows;      // rows of a leaf step
 constexpr int kTreeTile = kTreeThreads * kRows;  // rows of a tree step
@@ -1138,8 +1138,6 @@ long long tsqr_scratch_bytes(int B, int ntiles, int nblk) {
 }
 
 int tsqr_tile_rows() { return kTile; }
-
-int tsqr_tree_rows() { return kTreeTile; }
 
 // Byte offset of the masks (B, nblk) in the scratch: which columns of each
 // leaf chain hold a nonzero.

@@ -48,8 +48,6 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "householder.cu"
 KERNELS = ("panel_factor", "panel_factor_batched")
 ROUTES = ("smem", "tsqr", "sweep")
 MAX_B = 32
-TILE_ROWS = 512          # rows of one TSQR leaf step (kTile in the source)
-TREE_ROWS = 1024         # rows of one TSQR tree step (kTreeTile)
 TSQR_CHAINS = 264        # leaf chains a launch: two blocks on each of 132 SMs
 
 launches: collections.Counter = collections.Counter()
@@ -76,10 +74,6 @@ def _lib() -> ctypes.CDLL:
         fn.argtypes = [_I, _I, _I]
         fn.restype = _L
     lib.tsqr_tile_rows.restype = _I
-    lib.tsqr_tree_rows.restype = _I
-    if (lib.tsqr_tile_rows(), lib.tsqr_tree_rows()) != (TILE_ROWS, TREE_ROWS):
-        raise RuntimeError("householder.cu's TSQR steps differ from "
-                           f"TILE_ROWS, TREE_ROWS = {TILE_ROWS}, {TREE_ROWS}")
     return lib
 
 
@@ -87,6 +81,12 @@ def build() -> None:
     """Build and load the kernels now (they are otherwise built at first
     use)."""
     _lib()
+
+
+def tsqr_tile_rows() -> int:
+    """Rows of one TSQR leaf step, as the source defines them (a tree step
+    is twice as many)."""
+    return _lib().tsqr_tile_rows()
 
 
 @functools.cache
@@ -126,7 +126,7 @@ def _streamed(lib, a3, v, tau, r, stream, name) -> str:
     then its finish, or the sweep where a zero column precedes a nonzero
     one (in any member).  Returns the route."""
     bsz, m, b = a3.shape
-    tpb, nblk, ntiles = tsqr_plan(m, bsz, TILE_ROWS, TSQR_CHAINS)
+    tpb, nblk, ntiles = tsqr_plan(m, bsz, lib.tsqr_tile_rows(), TSQR_CHAINS)
     scratch = torch.empty(lib.tsqr_scratch_bytes(bsz, ntiles, nblk),
                           dtype=torch.uint8, device=a3.device)
     code = lib.panel_factor_tsqr_leaf(
@@ -265,9 +265,9 @@ def qr_blocked(a: torch.Tensor, panel: int = 32):
 
 
 __all__ = [
-    "KERNELS", "MAX_B", "ROUTES", "TILE_ROWS", "TREE_ROWS", "TSQR_CHAINS",
-    "build",
+    "KERNELS", "MAX_B", "ROUTES", "TSQR_CHAINS", "build",
     "build_t", "launches", "panel_factor", "panel_factor_batched",
     "panel_factor_plain", "panel_factor_ref", "panel_factor_tsqr",
-    "qr_blocked", "reset_launches", "smem_rows", "stream_plan", "tsqr_plan",
+    "qr_blocked", "reset_launches", "smem_rows", "stream_plan",
+    "tsqr_plan", "tsqr_tile_rows",
 ]

@@ -20,7 +20,7 @@ tile (Ballard, Demmel, Grigori, Jacquelin, Nguyen, Solomonik,
    triangle, from zero; X the tile), which keeps Y (the reflectors are
    [I; Y]), T (forward LARFT) and the new R;
 2. the tree: one more chain over the stacked leaf R's (in steps of
-   ``tree_tile`` rows) gives R_tsqr, and its Q walked down from the top
+   2·``tile`` rows) gives R_tsqr, and its Q walked down from the top
    tile (C ← C − T C, rows −Y T C) gives each leaf chain's 32 × 32 block
    C_c of the thin Q;
 3. the top block: Q₁ = −Y_top[:32] T_top C_0, and the LU Q₁ − S = L U with
@@ -205,13 +205,11 @@ def _tiles(a: torch.Tensor, tile: int, groups: int, per: int):
     return pad.reshape(bsz, groups, per, tile, nb)
 
 
-def panel_factor_tsqr(a_panel: torch.Tensor, tile: int = 512,
-                      chains: int = 264, tree_tile: int = 0):
+def panel_factor_tsqr(a_panel: torch.Tensor, tile: int, chains: int):
     """The TSQR route of ``panel_factor`` (module docstring), tile for tile:
     (V (..., M, b), τ (..., b), R (..., b, b)), float32.  ``tile`` rows a
-    leaf step, ``tree_tile`` (default 2·tile) a tree step, and about
-    ``chains`` leaf chains, as the kernel plans them (``tsqr_plan``);
-    M >= 32."""
+    leaf step, 2·``tile`` a tree step, and about ``chains`` leaf chains, as
+    the kernel plans them (``tsqr_plan``); M >= 32."""
     a = a_panel.float()
     *lead, m, b = a.shape
     if m < 32 or b > 32:
@@ -234,9 +232,8 @@ def panel_factor_tsqr(a_panel: torch.Tensor, tile: int = 512,
     r_leaf, y_leaf, t_leaf = _chains(_tiles(x, tile, nblk, tpb), live)
     # 2. the tree over the stacked leaf R's (float32, as the kernel keeps
     # them)
-    tree_tile = tree_tile or 2 * tile
-    ntree = -(-(nblk * nb) // tree_tile)
-    stacked = _tiles(r_leaf.float().reshape(bsz, nblk * nb, nb), tree_tile,
+    ntree = -(-(nblk * nb) // (2 * tile))
+    stacked = _tiles(r_leaf.float().reshape(bsz, nblk * nb, nb), 2 * tile,
                      1, ntree)
     tlive = torch.ones((bsz, 1, ntree), dtype=torch.bool, device=dev)
     r_tsqr, y_tree, t_tree = _chains(stacked, tlive)

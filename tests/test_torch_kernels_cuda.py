@@ -225,14 +225,28 @@ def test_blocked_svd_on_card_within_float64(cuda_device):
     assert float((got - ref).abs().max()) <= 1e-6 * float(ref.max())
 
 
+def _moved(before, after):
+    return {k: n - before.get(k, 0) for k, n in after.items()
+            if n != before.get(k, 0)}
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("fill", ec.PANEL_FILLS)
 @pytest.mark.parametrize("delta", [0, 1])
-def test_panel_on_either_side_of_shared_memory(cuda_device, delta):
+def test_panel_on_either_side_of_shared_memory(cuda_device, delta, fill):
+    """Each fill one row either side of ``smem_rows(32)``: the one-block
+    form below, the TSQR or (interior zero column) sweep route above."""
     rows = hh.smem_rows(32) + delta
     gen = torch.Generator(device=cuda_device).manual_seed(1)
-    case = ec.engine_case("panel", (rows, 32), gen, cuda_device)
-    ok, _, parts = ec.compare(case, case.kernel(), case.plain(), 2e-4)
-    assert ok, (rows, parts)
+    case = ec.engine_case("panel", (rows, 32), gen, cuda_device, fill=fill)
+    route = ec.panel_route((rows, 32), fill, hh.smem_rows(32))
+    before = dict(hh.launches)
+    got = case.kernel()
+    torch.cuda.synchronize()
+    assert _moved(before, hh.launches) == {"panel_factor": 1,
+                                           f"panel_factor_{route}": 1}
+    ok, _, parts = ec.compare(case, got, case.plain(), 2e-4)
+    assert ok, (rows, fill, parts)
 
 
 PANEL_FILL_CASES = [(kind, shape, fill)
@@ -241,11 +255,6 @@ PANEL_FILL_CASES = [(kind, shape, fill)
                     for fill in ec.PANEL_FILLS] + [
     ("panel", (2_883_584, 32), "dense"), ("panel", (2_883_584, 32), "padded"),
     ("panel_batched", (9, 4096, 32), "padded")]
-
-
-def _moved(before, after):
-    return {k: n - before.get(k, 0) for k, n in after.items()
-            if n != before.get(k, 0)}
 
 
 @pytest.mark.cuda
@@ -285,7 +294,7 @@ def test_panel_tsqr_matches_both_plain_versions_on_card(cuda_device, extra):
     assert _moved(before, hh.launches) == {"panel_factor": 1,
                                            "panel_factor_tsqr": 1}
     (a,) = case.inputs
-    for ref in (case.plain(), href.panel_factor_tsqr(a, hh.TILE_ROWS,
+    for ref in (case.plain(), href.panel_factor_tsqr(a, hh.tsqr_tile_rows(),
                                                      hh.TSQR_CHAINS)):
         ok, _, parts = ec.compare(case, got, ref, 2e-4)
         assert ok, (m, parts)

@@ -50,6 +50,24 @@ def kernel_ms(prof) -> dict:
     return out
 
 
+def gap_ms(prof, before: str, after: str) -> tuple:
+    """(pairs, total ms) of the device time from the end of each CUDA
+    event whose name holds ``before`` to the start of the next one whose
+    name holds ``after`` (one stream: what the device waits between them)."""
+    from torch.autograd import DeviceType
+    evs = sorted((e.start_ns(), e.duration_ns(), e.name())
+                 for e in prof.profiler.kineto_results.events()
+                 if e.device_type() == DeviceType.CUDA
+                 and (before in e.name() or after in e.name()))
+    pairs, total, end = 0, 0.0, None
+    for start, dur, name in evs:
+        if after in name and end is not None:
+            pairs, total, end = pairs + 1, total + (start - end) / 1e6, None
+        elif before in name:
+            end = start + dur
+    return pairs, total
+
+
 def device_ms(fn, calls: int = 10) -> dict:
     """{kernel name: device ms per call} over ``calls`` calls of ``fn``
     after one warm-up call (``torch.profiler``, CUDA activity only)."""
