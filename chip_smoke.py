@@ -24,13 +24,23 @@
    The main path compresses on the default batched plan; at full width
    every bucket runs serial, through the sort and truncation kernels
    (gated: both launched, no plain engine call on the card).
-3. Kernel phase: each of the four chain kernels against its plain PyTorch
-   version on the same card tensors, at every chain shape the main path
-   gave it and at B in {1, 4, 64}, with float32, bfloat16 and int8 tail
-   cores (``kernels/tt_contract/cases.py``); pass when max|Δ| <= 2e-4 *
-   max|ref|.  Times (CUDA events, median) of the kernel, its plain
-   version and one ``torch.einsum`` call over the same chain, with the
-   tail cores in the dtype the main path serves (bfloat16, int8).
+   The tt run also profiles 3 fused decode steps (``decode_profile``:
+   host wall, device busy, kernels by device time).
+3. Kernel phase: every chain the main path serves, as ``tt_apply`` runs it
+   from the stored tensors (lead row, first core (r_s, n1, r1), tail cores,
+   scales: ``kernels/tt_contract/cases.stored_case``), against its plain
+   version (``ref.tt_chain_ref``: einsum absorption, then the chain) on the
+   same card tensors, at B in {1, 4, 64}, in float32, bfloat16 and int8
+   storage; pass when max|Δ| <= 2e-4 * max|ref|.  At B = 4 with bf16 x and
+   the storage the main path serves (bfloat16, int8): times (CUDA events,
+   median) of the call, its plain version and one ``torch.einsum`` of x,
+   the cores and the lead; the profiler's device time; and the one-call
+   gate: one ``tt_apply`` call runs at most 2 device kernels, both chain
+   kernels (no cast, einsum, copy or elementwise kernel), read from a CUDA
+   graph captured from the call (the profiler's names printed beside).  The
+   bound counts the stored bytes and the absorption's operations at the
+   peak of the route taken.  The absorbed-chain API (r_s = 1) of the four
+   kernels is held to its plain version at the shapes of ``cases.py``.
 4. TTD-engine phase (the paper's engine: panel factor, WY update, sort,
    truncation; ``kernels/{householder,block_update,singular_sort,
    frob_truncate}``):
@@ -92,6 +102,8 @@
       reconstruct-then-prefill (plain); G3 prefill's last logits vs decode
       stepped through the ring-buffer window cache at S = 2176 (the ring
       wraps);
+   b'. the stored chains of this compression (``stored_phase``) at B in
+      {1, 4, 8192} (8,192: the prefill's rows), as in 3.;
    c. the flash kernel against its plain version at every shape of
       ``kernels/flash_attention/cases.py`` in float32 (FMA route, TOL of
       max|ref|) and bfloat16 (mma route, 2e-2 on unit-normal inputs), and
@@ -111,21 +123,27 @@
       the spectral decay, eps 0.2, B = 4, prompt 16, gen 16: ``--weights
       tt``, then ``tt-int8`` on the same compression: compression seconds,
       peak device memory, bytes, the banks' ranks, decode tok/s;
-   b. every expert bank call one batched launch: tt_contract_2_batched
+   b. every expert bank call one batched call: tt_contract_2_batched
       (tt) and tt_contract_2q_batched (int8) exactly 3 banks x 16 layers x
-      the TT decode steps, no plain chain, no plain call on the card;
+      the TT decode steps, every one on the tensor-core route
+      (``..._batched_mma``), no plain chain, no plain call on the card; the
+      tt run also profiles 3 fused decode steps;
    c. float32: each MoE call of the reconstruct-then-serve teacher-forced
       run replayed with the TT-native banks and the dense banks (same input,
       same routing), per layer within F32_TOL of scale; the whole model's
       teacher-forced logits printed with the routing flips between the two
       and their margins;
-   d. each batched route against its plain version: depth 2 at the path's
-      bank shapes, depth 3 at synthetic shapes, 64 experts of 1, 4 and 64
-      tokens, float32, bfloat16 and int8 tails (TOL of max|ref|); times of
-      kernel, plain version and one ``torch.einsum`` at 1 token per expert.
+   d. the banks from their stored tensors with the lead (as 3., through
+      ``tt_apply_experts``): the path's bank shapes and a synthetic depth-3
+      and ragged bank, 64 experts of 1, 4 and 64 tokens and 3 of 9,
+      float32, bfloat16 and int8 storage (TOL of max|ref|; bf16 and int8 on
+      the tensor-core route); times at 1 token per expert (float32 too, the
+      gates' FFMA route); the attention chains at B in {1, 4}; the absorbed
+      batched API's routes against their plain versions.
 7. Prints the script's total seconds, one ``{"kernels": [...]}`` JSON line
    (the twelve other ported kernels, one entry per flash route and one per
-   batched chain route; the panel rows with their main-path route counts),
+   batched chain route, the float32 banks' FFMA route too; the panel rows
+   with their main-path route counts),
    the card line again, and as the last line ``{"ok": true, "device":
    {...}}``.
 
@@ -150,12 +168,16 @@ sys.path.insert(0, str(ROOT / "tools"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from cuda_timing import PhaseTimers, gap_ms, kernel_ms, time_ms  # noqa: E402
+from cuda_timing import (  # noqa: E402
+    PhaseTimers, capture, gap_ms, graph_ms, kernel_ms, time_ms)
 
 # H100 SXM published peaks (NVIDIA data sheet, 700 W): HBM bytes/s and f32
 # FLOP/s outside the tensor cores (the kernels' FFMA path)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
+# dense tensor-core peaks (same source): the banks' absorption route
+BF16_FLOPS = 989e12
+INT8_OPS = 1979e12
 TOL = 2e-4       # kernel phase: max|d| <= TOL * max|ref|
 F32_TOL = 1e-4   # main path, float32 logits: max|d| <= F32_TOL * scale
 DEVICE = "cuda"
@@ -377,6 +399,7 @@ def run_main_path(ops, serve_mod, weights: str) -> dict:
            "prompts": out["prompts"]}
     res["kernels_vs_plain"] = kernels_vs_plain(serve_mod, out, weights)
     if weights == "tt":
+        res["decode_profile"] = decode_profile(out, "qwen1.5-0.5b tt")
         res["f32_oracle"] = f32_oracle(serve_mod, out)
         py = serve_mod.engine_mod.generate(
             out["model"], out["params"], out["prompts"], 16, driver="python")
@@ -390,99 +413,250 @@ def run_main_path(ops, serve_mod, weights: str) -> dict:
 # Kernel phase
 # ---------------------------------------------------------------------------
 
-def chain_cost(kind, shape, b, tail_itemsize, experts: int = 1):
-    """(bytes, flops) the chain must move/do: each input read once (x, the
-    absorbed first core in f32, the tail cores in storage type, the scale),
-    the output written once; two FLOPs per multiply-add of the chain.  With
-    ``experts`` E, x, the first core and y are per expert (E chains of
-    ``b`` tokens each) and the tail is shared."""
-    if kind == 2:
-        n1, r1, n2 = shape
-        n_in, n_out = n1, n2
-        macs = n1 * r1 + r1 * n2
-        tail = r1 * n2
+def chain_cost(split, shapes, b, itemsize, x_itemsize, experts=None,
+               absorb_peak=F32_FLOPS):
+    """(bytes, absorption ops, chain ops, bound ms) of one stored call
+    (``cases.stored_case``): x, the lead row(s), the stored cores in their
+    storage type and the scales read once, y written once; the absorption's
+    E·r_s·n1·r1 multiply-adds at ``absorb_peak`` (the route taken: tensor
+    cores for a bf16 or int8 bank, FFMA otherwise), the chain's at the FFMA
+    peak; two operations per multiply-add."""
+    e = experts or 1
+    rs, n1, r1 = shapes[0]
+    if len(shapes) == 2:
+        n2 = shapes[1][1]
+        n_in, n_out, macs = n1, n2, n1 * r1 + r1 * n2
     else:
-        split, n1, r1, n2, r2, n3 = shape
+        _, n2, r2 = shapes[1]
+        n3 = shapes[2][1]
         if split == 1:
             n_in, n_out = n1, n2 * n3
             macs = n1 * r1 + r1 * n2 * r2 + n2 * r2 * n3
         else:
             n_in, n_out = n1 * n2, n3
             macs = n1 * n2 * r1 + n2 * r1 * r2 + r2 * n3
-        tail = r1 * n2 * r2 + r2 * n3
-    nbytes = (4 * experts * (b * n_in + n1 * r1 + b * n_out)
-              + tail * tail_itemsize + 4)
-    return nbytes, 2 * experts * b * macs
+    nbytes = (x_itemsize * e * b * (n_in + n_out)
+              + itemsize * (e * rs + sum(math.prod(c) for c in shapes))
+              + 4 * (len(shapes) + e))
+    absorb, chain = 2 * e * rs * n1 * r1, 2 * e * b * macs
+    bound = max(nbytes / HBM_BYTES_PER_S,
+                absorb / absorb_peak + chain / F32_FLOPS) * 1e3
+    return nbytes, absorb, chain, bound
 
 
-def chain_shapes(info):
-    """{kernel kind: {shape: calls per layer}} from the main path's chains."""
-    shapes = {2: {}, 3: {}}
-    for split, cores, experts in info["chains"].values():
-        if experts:
-            continue            # expert banks: the batched phase
-        if len(cores) == 2:
-            (_, n1, r1), (_, n2, _) = cores
-            key = (n1, r1, n2)
-            shapes[2][key] = shapes[2].get(key, 0) + 1
-        elif len(cores) == 3:
-            (_, n1, r1), (_, n2, r2), (_, n3, _) = cores
-            key = (split, n1, r1, n2, r2, n3)
-            shapes[3][key] = shapes[3].get(key, 0) + 1
-        else:
-            check(False, f"unexpected chain depth {len(cores)}")
+def chain_shapes(info, experts: bool = False):
+    """{(split, stored core shapes): calls per layer} of the main path's
+    single chains (or, with ``experts``, its expert banks)."""
+    shapes = {}
+    for split, cores, e in info["chains"].values():
+        if bool(e) != experts:
+            continue
+        check(len(cores) in (2, 3),
+              f"unexpected chain depth {len(cores)}: {cores}")
+        key = (split, tuple(tuple(c) for c in cores))
+        shapes[key] = shapes.get(key, 0) + 1
     return shapes
 
 
-def kernel_phase(ops, cases, shapes, batch_sizes=(1, 4, 64), report_b=4):
-    """Check every kernel at every main-path shape with float32, bfloat16
-    and int8 tail cores; time it with its tail cores as the main path serves
-    them (bfloat16 for the wide kernels, int8 for the others).  Returns
-    per-kernel records summed over one layer's calls at ``report_b``."""
+# the chain kernels of kernels/tt_contract (phase A routes, phase B)
+CHAIN_KERNELS = ("absorb_in_kernel", "bank_kernel", "contract2_kernel",
+                 "expand1_kernel", "expand1_wide_kernel", "expand2_kernel")
+
+
+def profile_call(fn, calls: int = 5):
+    """(the device kernels one call of ``fn`` launches, its device ms):
+    ``torch.profiler`` over ``calls`` calls after a warm-up call.  A session
+    that sees no device kernel is run once more; sessions late in a long
+    process can still come back empty (then ([], None): not measured)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    kern = []
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        kern = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA]
+        if kern:
+            break
+    names = [e.key for e in kern for _ in range(round(e.count / calls))]
+    if not kern:
+        return [], None
+    return names, sum(e.self_device_time_total for e in kern) / 1e3 / calls
+
+
+def graph_nodes(fn) -> list:
+    """The node types (0 = kernel, 1 = copy, 2 = fill, ...) of a CUDA graph
+    captured from one call of ``fn`` after a warm-up call on the capture
+    stream (``cuda_timing.capture``): the device work the call enqueues,
+    read exactly from the driver."""
+    import ctypes
+    g = capture(fn, 1, keep_graph=True)
+    cuda = ctypes.CDLL("libcuda.so.1")
+    graph = ctypes.c_void_p(g.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    code = cuda.cuGraphGetNodes(graph, None, ctypes.byref(n))
+    nodes = (ctypes.c_void_p * max(n.value, 1))()
+    code = code or cuda.cuGraphGetNodes(graph, nodes, ctypes.byref(n))
+    types = []
+    for i in range(n.value):
+        t = ctypes.c_int(-1)
+        code = code or cuda.cuGraphNodeGetType(ctypes.c_void_p(nodes[i]),
+                                               ctypes.byref(t))
+        types.append(t.value)
+    g.reset()
+    check(code == 0, f"reading a captured graph failed: CUresult {code}")
+    return types
+
+
+def one_call_gate(fn, names, what: str) -> list:
+    """One tt_apply call is at most 2 device kernels and nothing else (no
+    cast, einsum, copy, fill or elementwise kernel): the nodes of a CUDA
+    graph of the call, all kernels, one or two of them; the profiler's
+    kernel names are printed beside them where it saw the call."""
+    kinds = graph_nodes(fn)
+    short = [next((k for k in CHAIN_KERNELS if k in n), n[:60])
+             for n in names]
+    check(1 <= len(kinds) <= 2 and all(k == 0 for k in kinds)
+          and all(n in CHAIN_KERNELS for n in short),
+          f"{what}: one call is {len(kinds)} graph nodes {kinds} (0 = "
+          f"kernel), profiled kernels {short}")
+    return short
+
+
+def _peak(dtype, experts, route_counts) -> float:
+    """The absorption's peak for the route a call took."""
+    if experts and any(k.endswith("_mma") and v
+                       for k, v in route_counts.items()):
+        return INT8_OPS if dtype == torch.int8 else BF16_FLOPS
+    return F32_FLOPS
+
+
+# bf16 x: y is stored in bf16, so the kernel's y may sit half an output
+# ulp (2^-8 of |y| at most) from the float32 plain version's, on top of TOL
+X_TOL = {torch.float32: TOL, torch.bfloat16: 2.0 ** -8 + TOL}
+
+
+def stored_phase(ops, cases, shapes, what: str, batch_sizes=(1, 4, 64),
+                 report_b=4, experts=False, ec=None,
+                 timed=SERVED_TAIL) -> dict:
+    """Every stored chain of ``shapes`` (``chain_shapes``) through
+    ``tt_apply`` (``experts``: ``tt_apply_experts``, at the (E, C) of ``ec``)
+    against its plain version (``ref.tt_chain_ref`` on the same x, in
+    float32), with float32, bfloat16 and int8 storage, each with float32 x
+    and with bf16 x (whose y is bf16): max|d| <= X_TOL[x dtype] * max|ref|;
+    a bank in bf16 or int8 must take the tensor-core route.  At
+    ``report_b`` rows (or C = 1 tokens per expert), in the storage the main
+    path serves (bf16, int8) with bf16 x as served: CUDA-event times of the
+    call, its plain version and one ``torch.einsum`` of x, the cores and
+    the lead; the device time from replays of a CUDA graph of calls
+    (``graph_ms``; the profiler's is printed beside it, "not measured"
+    where a session came back empty, and can miss kernels late in a long
+    process, so it is not kept); the one-call gate.  Returns
+    per-kernel records summed over one layer's calls (a float32 bank under
+    ``<kernel>_batched_fma``)."""
     gen = torch.Generator(device=DEVICE).manual_seed(1)
-    rec = {k: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
-               "bound_ms": 0.0, "library_ms": 0.0, "bytes": 0, "flops": 0}
-           for k in ops.KERNELS}
-    for b in batch_sizes:
-        for kind, per_layer in shapes.items():
-            for shape, calls in per_layer.items():
-                for dtype in cases.TAIL_DTYPES:
-                    name, kern, plain, library = cases.chain_case(
-                        kind, shape, b, dtype, gen, DEVICE)
+    rec = {}
+    pairs = ec if experts else [(None, b) for b in batch_sizes]
+    for (split, cores), calls in shapes.items():
+        for e, b in pairs:
+            for dtype in cases.TAIL_DTYPES:
+                for x_dtype in X_TOL:
+                    name, kern, plain, library = cases.stored_case(
+                        split, cores, b, dtype, gen, DEVICE, experts=e,
+                        x_dtype=x_dtype)
+                    ops.reset_launches()
                     y = kern()
+                    routes = {k: v for k, v in ops.launches.items()
+                              if k.endswith(("_mma", "_fma"))}
                     ref = plain()
                     torch.cuda.synchronize()
-                    err = float((y - ref).abs().max())
-                    scale = float(ref.abs().max())
-                    ok = err <= TOL * scale
-                    rec[name]["max_abs_err"] = max(rec[name]["max_abs_err"],
-                                                   err)
-                    line = (f"[kernel] {name} {str(dtype)[6:]} shape={shape} "
-                            f"B={b}: max|d| {err:.3e} (ref max {scale:.3e}) "
-                            f"{'ok' if ok else 'FAIL'}")
-                    check(ok, f"{name} {dtype} {shape} B={b} disagrees with "
-                              f"its plain version")
-                    if dtype not in SERVED_TAIL:
-                        print(line)
+                    err, scale = _gap(y, ref)
+                    ok = y.dtype == x_dtype and err <= X_TOL[x_dtype] * scale
+                    tag = (f"{name} {str(dtype)[6:]} x {str(x_dtype)[6:]} "
+                           f"{what} stored={list(cores)} split={split} "
+                           + (f"E={e} C={b}" if e else f"B={b}"))
+                    check(ok, f"{tag} disagrees with its plain version: "
+                              f"max|d| {err:.3e} (ref max {scale:.3e}, y "
+                              f"{y.dtype})")
+                    if e and dtype != torch.float32:
+                        check(routes.get(f"{name}_mma") == 1,
+                              f"{tag}: not on the tensor-core route {routes}")
+                    key = name + ("_fma" if e and dtype == torch.float32
+                                  else "")
+                    r = rec.setdefault(key, {
+                        "max_abs_err": 0.0, "ms": 0.0, "graph_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+                        "library_ms": 0.0, "bytes": 0, "ops_absorb": 0,
+                        "ops_chain": 0, "time_peak": F32_FLOPS,
+                        "routes": {}})
+                    if x_dtype == torch.float32:
+                        r["max_abs_err"] = max(r["max_abs_err"], err)
+                    else:
+                        r["max_abs_err_bf16_x"] = max(
+                            r.get("max_abs_err_bf16_x", 0.0), err)
+                    for k, v in routes.items():
+                        r["routes"][k] = r["routes"].get(k, 0) + v
+                    served_x = (torch.float32 if dtype == torch.float32
+                                else torch.bfloat16)
+                    if not (dtype in timed and b == (1 if e else report_b)
+                            and x_dtype == served_x):
+                        print(f"[kernel] {tag}: max|d| {err:.3e} (ref max "
+                              f"{scale:.3e}) " + ("ok" if ok else "FAIL"))
                         continue
-                    ms = time_ms(kern)
-                    p_ms = time_ms(plain)
-                    l_ms = time_ms(library)
-                    nbytes, flops = chain_cost(kind, shape, b,
-                                               dtype.itemsize)
-                    bound = max(nbytes / HBM_BYTES_PER_S,
-                                flops / F32_FLOPS) * 1e3
-                    print(f"{line}; kernel {ms:.4f} ms, plain {p_ms:.4f} ms, "
+                    ms, p_ms, l_ms = (time_ms(f) for f in
+                                      (kern, plain, library))
+                    g_ms = graph_ms(kern)
+                    names, dev = profile_call(kern)
+                    peak = _peak(dtype, e, routes)
+                    nbytes, absorb, chain, bound = chain_cost(
+                        split, cores, b, dtype.itemsize, x_dtype.itemsize, e,
+                        peak)
+                    names = one_call_gate(kern, names, tag)
+                    dev_txt = ("not measured" if dev is None
+                               else f"{dev:.4f}")
+                    print(f"[kernel] {tag}: max|d| {err:.3e} (ref max "
+                          f"{scale:.3e}) {'ok' if ok else 'FAIL'}; call "
+                          f"{ms:.4f} ms (graph replay {g_ms:.4f}, profiler "
+                          f"{dev_txt}: {names}), plain {p_ms:.4f} ms, "
                           f"einsum {l_ms:.4f} ms, bound {bound:.5f} ms")
-                    if b == report_b:
-                        r = rec[name]
-                        r["ms"] += calls * ms
-                        r["plain_ms"] += calls * p_ms
-                        r["library_ms"] += calls * l_ms
-                        r["bound_ms"] += calls * bound
-                        r["bytes"] += calls * nbytes
-                        r["flops"] += calls * flops
+                    r["ms"] += calls * ms
+                    r["graph_ms"] += calls * g_ms
+                    r["plain_ms"] += calls * p_ms
+                    r["library_ms"] += calls * l_ms
+                    r["bound_ms"] += calls * bound
+                    r["bytes"] += calls * nbytes
+                    r["ops_absorb"] += calls * absorb
+                    r["ops_chain"] += calls * chain
+                    r["time_peak"] = peak
     return rec
+
+
+def absorbed_phase(ops, cases) -> float:
+    """The absorbed-chain API (r_s = 1, float32 first core) of the four
+    kernels at ``cases.FULL_WIDTH_SHAPES`` and the ragged shapes, B in
+    {1, 4, 64}, float32, bfloat16 and int8 tails, against its plain
+    version: TOL * max|ref|.  Returns the largest max|d|."""
+    gen = torch.Generator(device=DEVICE).manual_seed(2)
+    worst = 0.0
+    for table in (cases.FULL_WIDTH_SHAPES, cases.RAGGED_SHAPES):
+        for kind, listed in table.items():
+            for shape in listed:
+                for b in (1, 4, 64):
+                    for dtype in cases.TAIL_DTYPES:
+                        name, kern, plain, _ = cases.chain_case(
+                            kind, shape, b, dtype, gen, DEVICE)
+                        err, scale = _gap(kern(), plain())
+                        worst = max(worst, err)
+                        check(err <= TOL * scale,
+                              f"absorbed {name} {dtype} {shape} B={b} "
+                              f"disagrees with its plain version")
+    print(f"[chip_smoke] absorbed-chain API: every shape within TOL, worst "
+          f"max|d| {worst:.3e}")
+    return worst
 
 
 # ---------------------------------------------------------------------------
@@ -1319,6 +1493,10 @@ def moe_serve(serve_mod) -> dict:
         check(counts.get(key, 0) == want,
               f"moe {weights}: {counts.get(key, 0)} {key} launches, want "
               f"{want} (3 banks x {cfg.num_layers} layers x {steps} steps)")
+        # the banks' absorption on the tensor cores, every call
+        check(counts.get(f"{key}_mma", 0) == want,
+              f"moe {weights}: {counts.get(f'{key}_mma', 0)} bank calls on "
+              f"the tensor-core route, want {want}")
         attn = "tt_contract_3q" if quant else "tt_contract_3"
         check(counts.get(attn, 0) > 0,
               f"moe {weights}: attention chains never launched {attn}")
@@ -1344,7 +1522,7 @@ def moe_serve(serve_mod) -> dict:
             res["compression"] = timers.breakdown(info["compress_s"])
             print(f"[chip_smoke] moe compression, where the time goes: "
                   f"{json.dumps(res['compression'])}")
-            res["decode_profile"] = moe_decode_profile(out)
+            res["decode_profile"] = decode_profile(out, "moe tt")
         res[weights] = {
             "counts": counts, "steps": steps, "wall_s": wall,
             "peak_bytes": peak, "base_bytes": base,
@@ -1353,16 +1531,17 @@ def moe_serve(serve_mod) -> dict:
             "ranks": {k: list(v) for k, v in info["ranks"].items()},
             "dense_bytes": info["dense_bytes"], "tt_bytes": info["tt_bytes"],
             "ttq_bytes": info.get("ttq_bytes"),
-            "absorbed_bytes": info["absorbed_bytes"], "verify": ver}
-        res["chains"] = info["chains"]
+            "call_bytes": info["call_bytes"], "verify": ver}
+        res["info"] = {"chains": info["chains"]}
         res["out"] = out
     return res
 
 
-def moe_decode_profile(out, steps: int = 3) -> dict:
+def decode_profile(out, what: str, steps: int = 3) -> dict:
     """Host wall and device busy time of ``steps`` fused greedy decode
-    steps of the served TT params (``torch.profiler``), with the kernels
-    that take the most device time."""
+    steps of the served TT params after the prompt (``torch.profiler``),
+    with the kernels that take the most device time and the number of
+    device kernels."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.models import common
@@ -1376,9 +1555,9 @@ def moe_decode_profile(out, steps: int = 3) -> dict:
         for _ in range(s):                       # through the prompt
             state = common.gen_step(model.decode_step, out["params"], state)
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()    # the profiler's start-up excluded
             for _ in range(steps):
                 state = common.gen_step(model.decode_step, out["params"],
                                         state)
@@ -1389,11 +1568,13 @@ def moe_decode_profile(out, steps: int = 3) -> dict:
     busy = sum(e.self_device_time_total for e in kern) / 1e3
     top = sorted(kern, key=lambda e: -e.self_device_time_total)[:8]
     res = {"steps": steps, "wall_ms": wall * 1e3, "device_busy_ms": busy,
+           "kernel_calls": sum(e.count for e in kern),
            "top": [[e.key[:60], e.count, e.self_device_time_total / 1e3]
                    for e in top]}
-    print(f"[chip_smoke] moe decode profile (tt): {steps} fused steps, host "
-          f"wall {wall * 1e3:.1f} ms, device busy {busy:.1f} ms; top "
-          f"kernels [name, calls, ms] {json.dumps(res['top'])}")
+    print(f"[chip_smoke] {what} decode profile: {steps} fused steps, host "
+          f"wall {wall * 1e3:.1f} ms, device busy {busy:.1f} ms in "
+          f"{res['kernel_calls']} kernels; top kernels [name, calls, ms] "
+          f"{json.dumps(res['top'])}")
     return res
 
 
@@ -1455,8 +1636,10 @@ def moe_f32_gates(serve_mod, out) -> dict:
     reset_counts()
     want = len(MOE_BANKS) * len(xs.calls)
     check(counts.get("tt_contract_2_batched", 0) == want
+          and counts.get("tt_contract_2_batched_fma", 0) == want
           and counts.get("plain_chains", 0) == 0,
-          f"moe f32 gate: {counts} (want {want} batched launches)")
+          f"moe f32 gate: {counts} (want {want} batched launches, all on "
+          f"the float32 FFMA route)")
     check_no_plain(counts, "moe f32 gate")
     print(f"[chip_smoke] moe f32 gate: {len(xs.calls)} MoE calls replayed "
           f"with TT-native and dense banks, same routing: worst per-layer "
@@ -1468,61 +1651,46 @@ def moe_f32_gates(serve_mod, out) -> dict:
             "routings": len(rx_r.calls) * prompts.shape[0]}
 
 
-def moe_kernel_phase(ops, cases, chains) -> dict:
-    """d: each batched route against its plain version on the card: the
-    depth-2 routes at the main path's bank shapes, the depth-3 routes at
-    the synthetic and ragged shapes of ``cases.BATCHED_SHAPES``, the (E, C)
-    of ``cases.BATCHED_EC`` (64 experts of 1, 4 or 64 tokens, 3 of 9),
-    float32, bfloat16 and int8 tails; times (tails as served) at C = 1, the
-    decode shape: one layer's bank calls for depth 2, one call per shape
-    for depth 3."""
-    gen = torch.Generator(device=DEVICE).manual_seed(3)
-    shapes = {2: {}, 3: {s: 1 for s in cases.BATCHED_SHAPES[3]}}
+def moe_kernel_phase(ops, cases, info) -> dict:
+    """d: the main path's expert banks (``stored_phase``, from their stored
+    tensors with the lead) at every (E, C) of ``cases.BATCHED_EC``, float32,
+    bfloat16 and int8 (bf16 and int8 on the tensor-core route, timed as
+    served at C = 1; float32, the gates' FFMA route, timed too), and the
+    synthetic depth-3 and ragged banks of ``cases.STORED_BANKS``; the
+    attention chains at B in {1, 4}; the absorbed batched API's routes
+    against their plain versions (``cases.batched_case``)."""
+    banks = chain_shapes(info, experts=True)
     for path in MOE_BANKS:
-        split, cores, experts = chains[path]
-        (_, n1, r1), (_, n2, _) = cores
+        split, cores, experts = info["chains"][path]
         check(len(cores) == 2 and split == 1 and experts == 64,
               f"moe: {path} is not a depth-2, split-1 bank of 64 experts: "
-              f"{chains[path]}")
-        shapes[2][(n1, r1, n2)] = shapes[2].get((n1, r1, n2), 0) + 1
-    rec = {k: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
-               "bound_ms": 0.0, "library_ms": 0.0, "bytes": 0, "flops": 0}
-           for k in ops.BATCHED}
-    for kind, per_layer in shapes.items():
-        for shape, calls in per_layer.items():
+              f"{info['chains'][path]}")
+    rec = stored_phase(ops, cases, banks, "olmoe-1b-7b bank", experts=True,
+                       ec=cases.BATCHED_EC, timed=SERVED_TAIL
+                       + (torch.float32,))
+    synthetic = {(split, tuple(tuple(c) for c in cores)): 1
+                 for name, (split, cores) in cases.STORED_BANKS.items()
+                 if not name.startswith("olmoe")}
+    for k, v in stored_phase(ops, cases, synthetic, "synthetic bank",
+                             experts=True, ec=cases.BATCHED_EC).items():
+        rec.setdefault(k, v)
+    rec["attention"] = stored_phase(ops, cases, chain_shapes(info),
+                                    "olmoe-1b-7b", batch_sizes=(1, 4))
+    gen = torch.Generator(device=DEVICE).manual_seed(3)
+    worst = 0.0
+    for kind, listed in cases.BATCHED_SHAPES.items():
+        for shape in listed:
             for e, c in cases.BATCHED_EC:
                 for dtype in cases.TAIL_DTYPES:
-                    name, kern, plain, library = cases.batched_case(
+                    name, kern, plain, _ = cases.batched_case(
                         kind, shape, e, c, dtype, gen, DEVICE)
-                    y, ref = kern(), plain()
-                    torch.cuda.synchronize()
-                    err, scale = _gap(y, ref)
-                    ok = err <= TOL * scale
-                    r = rec[name]
-                    r["max_abs_err"] = max(r["max_abs_err"], err)
-                    check(ok, f"{name} {dtype} {shape} E={e} C={c} disagrees "
-                              f"with its plain version")
-                    line = (f"[kernel] {name} {str(dtype)[6:]} shape={shape} "
-                            f"E={e} C={c}: max|d| {err:.3e} (ref max "
-                            f"{scale:.3e}) {'ok' if ok else 'FAIL'}")
-                    if dtype not in SERVED_TAIL:
-                        print(line)
-                        continue
-                    ms, p_ms, l_ms = (time_ms(f) for f in (kern, plain,
-                                                            library))
-                    nbytes, flops = chain_cost(kind, shape, c, dtype.itemsize,
-                                               experts=e)
-                    bound = max(nbytes / HBM_BYTES_PER_S,
-                                flops / F32_FLOPS) * 1e3
-                    print(f"{line}; kernel {ms:.4f} ms, plain {p_ms:.4f} ms, "
-                          f"einsum {l_ms:.4f} ms, bound {bound:.5f} ms")
-                    if c == 1:
-                        r["ms"] += calls * ms
-                        r["plain_ms"] += calls * p_ms
-                        r["library_ms"] += calls * l_ms
-                        r["bound_ms"] += calls * bound
-                        r["bytes"] += calls * nbytes
-                        r["flops"] += calls * flops
+                    err, scale = _gap(kern(), plain())
+                    worst = max(worst, err)
+                    check(err <= TOL * scale,
+                          f"absorbed {name} {dtype} {shape} E={e} C={c} "
+                          f"disagrees with its plain version")
+    print(f"[chip_smoke] absorbed batched API: every shape within TOL, "
+          f"worst max|d| {worst:.3e}")
     return rec
 
 
@@ -1580,11 +1748,9 @@ def main() -> int:
     print(f"[chip_smoke] main path phase {time.perf_counter() - t0:.1f}s")
 
     t0 = time.perf_counter()
-    shapes = chain_shapes(paths["tt"]["info"])
-    for kind, listed in cases.FULL_WIDTH_SHAPES.items():
-        for shape in listed:
-            shapes[kind].setdefault(shape, 0)   # checked, not in the sums
-    rec = kernel_phase(ops, cases, shapes)
+    rec = stored_phase(ops, cases, chain_shapes(paths["tt"]["info"]),
+                       "qwen1.5-0.5b")
+    absorbed_phase(ops, cases)
     print(f"[chip_smoke] kernel phase {time.perf_counter() - t0:.1f}s")
 
     t0 = time.perf_counter()
@@ -1598,6 +1764,8 @@ def main() -> int:
 
     t0 = time.perf_counter()
     served = hybrid_serve(serve_mod)
+    hrec = stored_phase(ops, cases, chain_shapes(served["out"]["info"]),
+                        "recurrentgemma-2b", batch_sizes=(1, 4, 8192))
     hybrid = hybrid_prefill(served)
     del served["out"]
     torch.cuda.empty_cache()
@@ -1613,47 +1781,63 @@ def main() -> int:
     gates = moe_f32_gates(serve_mod, keep)
     del keep
     torch.cuda.empty_cache()
-    mrec = moe_kernel_phase(ops, cases, moe.pop("chains"))
+    mrec = moe_kernel_phase(ops, cases, moe.pop("info"))
     print(f"[chip_smoke] moe phase {time.perf_counter() - t0:.1f}s")
 
+    def bound_by(r):
+        return ("bytes" if r["bytes"] / HBM_BYTES_PER_S
+                >= r["ops_absorb"] / r["time_peak"]
+                + r["ops_chain"] / F32_FLOPS else "operations")
+
+    chain_src = "src/repro_torch/kernels/tt_contract/csrc/tt_contract.cu"
     kernels = []
     for name in ops.KERNELS:
         path = paths["tt" if not name.endswith("q") else "tt-int8"]
         r = rec[name]
         kernels.append({
-            "name": name, "route": "cuda",
-            "source": "src/repro_torch/kernels/tt_contract/csrc/tt_contract.cu",
+            "name": name, "route": "cuda", "source": chain_src,
             "replaces": {"tt_contract_2": "src/repro/kernels/tt_contract/kernel.py:138",
                          "tt_contract_3": "src/repro/kernels/tt_contract/kernel.py:162",
                          "tt_contract_2q": "src/repro/kernels/tt_contract/kernel.py:190",
                          "tt_contract_3q": "src/repro/kernels/tt_contract/kernel.py:219"}[name],
             "launches": path["counts"].get(name, 0),
             "max_abs_err": r["max_abs_err"],
-            "ms": r["ms"], "plain_ms": r["plain_ms"],
-            "bound_ms": r["bound_ms"],
-            "bound_by": ("bytes" if r["bytes"] / HBM_BYTES_PER_S
-                         >= r["flops"] / F32_FLOPS else "operations"),
-            "library_ms": r["library_ms"],
-            "timed": "sum over one layer's calls at B=4, main-path shapes",
+            "ms": r["ms"], "graph_ms": r["graph_ms"],
+            "max_abs_err_bf16_x": r["max_abs_err_bf16_x"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": bound_by(r), "library_ms": r["library_ms"],
+            "timed": "one tt_apply call from the stored tensors (lead "
+                     "absorbed in phase A), summed over one qwen1.5-0.5b "
+                     "layer's calls at B=4, bf16 x, storage as served; "
+                     "graph_ms: device time from replays of a CUDA graph "
+                     "of calls",
         })
-    for name in ops.BATCHED:
-        r = mrec[name]
+    for name, key in [(k, k) for k in ops.BATCHED] + [
+            ("tt_contract_2_batched_fma", "tt_contract_2_batched_fma")]:
+        r = mrec[key]
+        base = name[:-len("_fma")] if name.endswith("_fma") else name
+        moe_run = moe["tt-int8" if "q_" in name else "tt"]
         kernels.append({
-            "name": name, "route": "cuda",
-            "source": "src/repro_torch/kernels/tt_contract/csrc/tt_contract.cu",
+            "name": name, "route": "cuda", "source": chain_src,
             "replaces": BATCHED_TPU,
-            "launches": moe["tt-int8" if "q_" in name else "tt"][
-                "counts"].get(name, 0),
+            "launches": moe_run["counts"].get(
+                name if name.endswith("_fma") else base, 0),
+            "phase_a_routes": {k: moe_run["counts"].get(f"{base}_{k}", 0)
+                               for k in ops.BANK_ROUTES},
             "max_abs_err": r["max_abs_err"],
-            "ms": r["ms"], "plain_ms": r["plain_ms"],
-            "bound_ms": r["bound_ms"],
-            "bound_by": ("bytes" if r["bytes"] / HBM_BYTES_PER_S
-                         >= r["flops"] / F32_FLOPS else "operations"),
-            "library_ms": r["library_ms"],
-            "timed": ("sum over one olmoe-1b-7b layer's three bank calls, "
-                      "64 experts x 1 token" if "_2" in name else
-                      "sum over the four depth-3 chains of cases.py "
-                      "(split 1 and 2), 64 experts x 1 token; on no "
+            "ms": r["ms"], "graph_ms": r["graph_ms"],
+            "max_abs_err_bf16_x": r["max_abs_err_bf16_x"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": bound_by(r), "library_ms": r["library_ms"],
+            "timed": ("float32 banks (the float32 gates' FFMA route), sum "
+                      "over one olmoe-1b-7b layer's three bank calls, 64 "
+                      "experts x 1 token; launches in the main path: none "
+                      "(bf16 serving)" if name.endswith("_fma") else
+                      "sum over one olmoe-1b-7b layer's three bank calls "
+                      "from the stored tensors, 64 experts x 1 token, "
+                      "absorption on the tensor cores" if "_2" in name else
+                      "one call of the synthetic depth-3 stored bank of "
+                      "cases.STORED_BANKS, 64 experts x 1 token; on no "
                       "config's path"),
         })
     engine_counts = {**full["counts"], **resnet["counts"]}
@@ -1697,6 +1881,10 @@ def main() -> int:
                      + ("dense bf16" if dtype == torch.bfloat16 else
                         "dense f32, gate G1") + ")",
         })
+    print(f"[chip_smoke] hybrid stored chains: " + json.dumps(
+        {k: {kk: v[kk] for kk in ("max_abs_err", "max_abs_err_bf16_x",
+                                  "ms", "graph_ms", "bound_ms")}
+         for k, v in hrec.items()}))
     print(f"[chip_smoke] hybrid summary: " + json.dumps({
         "serve": served["summary"],
         "prefill": {k: v for k, v in hybrid.items() if k != "counts"},
@@ -1722,6 +1910,7 @@ def main() -> int:
             "ttq_leaf_bytes": p["info"].get("ttq_leaf_bytes"),
             "verify": p["verify"], "launches": p["counts"],
             "tt_steps": p["steps"],
+            "decode_profile": p.get("decode_profile"),
             "kernels_vs_plain": p["kernels_vs_plain"],
             "f32_oracle": p.get("f32_oracle")}
         for w, p in paths.items()}

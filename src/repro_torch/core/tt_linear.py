@@ -15,17 +15,22 @@ one layer-stacked weight:
 
 Quantized storage: ``quantize_tt`` rounds every core to a symmetric int8
 grid with one scale per core and one scale per lead row (per layer, and per
-(layer, expert) for a bank); the int8 kernels widen the tail cores in
-registers and apply the scale product once to the output.  Round-to-nearest
+(layer, expert) for a bank); the int8 kernels widen the stored cores in
+registers and apply the scale product (lead row's and every core's) once
+to the output.  Round-to-nearest
 bounds the error per element by ``amax / (2·qmax)``.
 
-``tt_apply`` absorbs the selected layer's lead vector into the first core
-and runs the chain through ``kernels/tt_contract`` — on CUDA tensors the
-hand-written kernels, on CPU tensors their plain versions.
+``tt_apply`` runs the chain from the stored tensors through
+``kernels/tt_contract`` — on CUDA tensors the hand-written kernels, which
+absorb the selected layer's lead vector into the first core while it
+streams, apply the scales and write y in x's dtype, in two launches; on
+CPU tensors their plain version (the reference's einsum absorption, then
+the chain).
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import List, Optional, Sequence, Tuple, Union
 
@@ -216,31 +221,15 @@ def tt_apply(x: torch.Tensor, t: TTLinear) -> torch.Tensor:
         raise ValueError(f"input {tuple(x.shape)} does not end in "
                          f"{t.in_shape}")
     batch = x.shape[: x.ndim - nin]
-    x2 = x.reshape(int(np.prod(batch or (1,))), -1)
+    x2 = x.reshape(math.prod(batch), -1).contiguous()
+    if t.lead is None and t.cores[0].shape[0] != 1:
+        raise ValueError(f"unstacked first core must have r0 == 1, "
+                         f"got {tuple(t.cores[0].shape)}")
 
-    g0 = t.cores[0]                                   # (r_s, n_1, r_1)
-    lead = t.lead
-    if lead is not None and t.quantized:
-        # the lead row is tiny: dequantize it here; its scale and the first
-        # core's scale fold into the absorbed core, so only the tail cores
-        # reach the kernel as int8
-        lead = dequantize_array(lead, t.lead_scale)
-    if lead is not None:
-        g0 = torch.einsum("r,rns->ns", lead.float(), g0.float())
-    else:
-        if g0.shape[0] != 1:
-            raise ValueError(f"unstacked first core must have r0 == 1, "
-                             f"got {tuple(g0.shape)}")
-        g0 = g0[0].float()
-    chain_scales = None
-    if t.quantized:
-        g0 = g0 * t.scales[0]
-        chain_scales = [None] + list(t.scales[1:])
-    chain = [g0] + list(t.cores[1:])
-
-    from repro_torch.kernels.tt_contract.ops import tt_contract
-    y2 = tt_contract(x2, chain, split=t.split, scales=chain_scales)
-    return y2.reshape(*batch, *t.out_shape).to(x.dtype)
+    from repro_torch.kernels.tt_contract.ops import tt_chain
+    y2 = tt_chain(x2, t.lead, t.lead_scale if t.quantized else None,
+                  t.cores, t.scales, t.split)
+    return y2.reshape(*batch, *t.out_shape)
 
 
 def tt_apply_experts(x: torch.Tensor, t: TTLinear) -> torch.Tensor:
@@ -248,9 +237,11 @@ def tt_apply_experts(x: torch.Tensor, t: TTLinear) -> torch.Tensor:
 
     x (E, C, *in_shape) → (E, C, *out_shape).  The experts share every
     core and differ only in their lead rows, so the bank runs as one
-    expert-batched chain (``tt_contract_batched``); the dense
-    (E, N_in, N_out) bank never exists.  The per-expert lead absorption
-    (E, r_s)·(r_s, n_1, r_1) is a plain einsum, as in the reference."""
+    expert-batched chain (``tt_chain_experts``); neither the dense
+    (E, N_in, N_out) bank nor the absorbed (E, n_1, r_1) first cores exist:
+    on CUDA the kernel absorbs the lead rows (E, r_s)·(r_s, n_1, r_1) on the
+    tensor cores while the stored first core streams past (bf16, int8).  On
+    the CPU the plain version absorbs by einsum, as the reference does."""
     if not t.experts:
         raise ValueError("plain TTLinear: use tt_apply")
     if t.lead is None or t.lead.ndim != 2:
@@ -265,21 +256,12 @@ def tt_apply_experts(x: torch.Tensor, t: TTLinear) -> torch.Tensor:
         raise ValueError(f"input {tuple(x.shape)} does not end in "
                          f"{t.in_shape}")
     batch = x.shape[1: x.ndim - nin]
-    x3 = x.reshape(e, int(np.prod(batch or (1,))), -1)
+    x3 = x.reshape(e, math.prod(batch), -1).contiguous()
 
-    lead = t.lead
-    tail_scales = None
-    if t.quantized:
-        lead = dequantize_array(lead, t.lead_scale, axis=-1)   # (E, r_s)
-        tail_scales = list(t.scales[1:])
-    g0e = torch.einsum("er,rns->ens", lead.float(), t.cores[0].float())
-    if t.quantized:
-        g0e = g0e * t.scales[0]
-
-    from repro_torch.kernels.tt_contract.ops import tt_contract_batched
-    y3 = tt_contract_batched(x3, g0e, list(t.cores[1:]), split=t.split,
-                             scales=tail_scales)
-    return y3.reshape(e, *batch, *t.out_shape).to(x.dtype)
+    from repro_torch.kernels.tt_contract.ops import tt_chain_experts
+    y3 = tt_chain_experts(x3, t.lead, t.lead_scale if t.quantized else None,
+                          t.cores, t.scales, t.split)
+    return y3.reshape(e, *batch, *t.out_shape)
 
 
 # ---------------------------------------------------------------------------
@@ -360,6 +342,17 @@ def tt_param_bytes(tree) -> int:
             total += sum(_nbytes(a) for a in leaf.tensors())
         elif isinstance(leaf, torch.Tensor):
             total += _nbytes(leaf)
+    return total
+
+
+def tt_call_bytes(t: TTLinear) -> int:
+    """Stored bytes one apply of a (stacked) leaf reads: one layer's lead
+    row(s) and lead scales, every core and core scale."""
+    layers = t.num_layers or 1
+    total = sum(_nbytes(a) for a in list(t.cores) + list(t.scales or []))
+    for a in (t.lead, t.lead_scale):
+        if a is not None:
+            total += _nbytes(a) // layers
     return total
 
 

@@ -62,6 +62,64 @@ def tt_contract_batched_ref(x3: torch.Tensor, g0b: torch.Tensor,
     return t.reshape(e, b, -1)
 
 
+def _tail_scale(scales):
+    """Product of the tail cores' scales (``None`` entries are wide)."""
+    combined = None
+    for s in scales:
+        if s is not None:
+            s = torch.as_tensor(s, dtype=torch.float32)
+            combined = s if combined is None else combined * s
+    return combined
+
+
+def tt_chain_ref(x2: torch.Tensor, lead: Optional[torch.Tensor],
+                 lead_scale: Optional[torch.Tensor],
+                 cores: Sequence[torch.Tensor],
+                 scales: Optional[Sequence[Optional[torch.Tensor]]],
+                 split: int) -> torch.Tensor:
+    """One TTLinear call from its stored tensors, (B, N_in) → (B, N_out)
+    float32: the lead row ``lead`` (r_s,) (``None``: the first core is
+    (1, n1, r1)) and its ``lead_scale``, the stored first core (r_s, n1, r1)
+    and the tail cores, ``scales`` one per core for a quantized leaf.
+
+    The reference's order: dequantize the lead, absorb it into the first
+    core (an einsum), apply the first core's scale, run the absorbed chain,
+    multiply by the tail scales' product."""
+    g0 = cores[0]
+    if lead is not None:
+        if lead_scale is not None:
+            lead = lead.float() * lead_scale
+        g0 = torch.einsum("r,rns->ns", lead.float(), g0.float())
+    else:
+        g0 = g0[0].float()
+    combined = None
+    if scales is not None:
+        g0 = g0 * scales[0]
+        combined = _tail_scale(scales[1:])
+    y = tt_contract_ref(x2, [g0] + list(cores[1:]), split)
+    return y if combined is None else y * combined.reshape(())
+
+
+def tt_chain_experts_ref(x3: torch.Tensor, lead: torch.Tensor,
+                         lead_scale: Optional[torch.Tensor],
+                         cores: Sequence[torch.Tensor],
+                         scales: Optional[Sequence[Optional[torch.Tensor]]],
+                         split: int) -> torch.Tensor:
+    """An expert bank's call from its stored tensors: x3 (E, C, N_in), the
+    lead rows (E, r_s) with their per-expert ``lead_scale`` (E,), the shared
+    cores → (E, C, N_out) float32, in the reference's order (per-expert
+    absorption by einsum, then ``tt_contract_batched_ref``)."""
+    if lead_scale is not None:
+        lead = lead.float() * lead_scale.unsqueeze(-1)
+    g0e = torch.einsum("er,rns->ens", lead.float(), cores[0].float())
+    combined = None
+    if scales is not None:
+        g0e = g0e * scales[0]
+        combined = _tail_scale(scales[1:])
+    y = tt_contract_batched_ref(x3, g0e, list(cores[1:]), split)
+    return y if combined is None else y * combined.reshape(())
+
+
 def tt_dequant_chain(cores: Sequence[torch.Tensor],
                      scales: Sequence[Optional[torch.Tensor]]):
     """Each core widened to f32 and multiplied by its scale (``None`` = the

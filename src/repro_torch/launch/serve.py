@@ -125,12 +125,6 @@ def _tt_setup(model, args, cfg, compressed=None):
     info["chains"] = {
         path: (leaf.split, [tuple(c.shape) for c in leaf.cores],
                leaf.experts) for path, leaf in tt_leaves}
-    # an expert bank's apply materializes its lead-absorbed first cores,
-    # float32 (E, n1, r1), on every call (a plain einsum, as the reference's)
-    info["absorbed_bytes"] = {
-        path: 4 * leaf.experts * int(leaf.cores[0].shape[1])
-        * int(leaf.cores[0].shape[2]) for path, leaf in tt_leaves
-        if leaf.experts}
     wide_leaf_b, dense_leaf_b = _ttl.tt_leaf_bytes(params_tt)
     info.update(tt_leaf_bytes=wide_leaf_b, dense_leaf_bytes=dense_leaf_b)
     line = (f"weight bytes: dense {info['dense_bytes']:,} -> tt-native "
@@ -143,10 +137,18 @@ def _tt_setup(model, args, cfg, compressed=None):
         line += (f" -> tt-{quant} {info['ttq_bytes']:,}; TT-served leaves "
                  f"{wide_leaf_b:,} -> {info['ttq_leaf_bytes']:,} "
                  f"(dense form {dense_leaf_b:,})")
-    if info["absorbed_bytes"]:
-        line += ("; expert banks' lead-absorbed first cores per call "
-                 "(float32): " + ", ".join(
-                     f"{p} {n:,} B" for p, n in info["absorbed_bytes"].items()))
+    # the stored bytes one call of each TT leaf reads (its lead row, the
+    # cores, the scales); the kernels absorb the lead as the first core
+    # streams, so nothing wider is formed
+    info["call_bytes"] = {
+        path: _ttl.tt_call_bytes(leaf) for path, leaf in
+        _tree.leaves_with_paths(params_tt, is_leaf=_ttl.is_tt_linear)
+        if _ttl.is_tt_linear(leaf)}
+    banks = {p: n for p, n in info["call_bytes"].items()
+             if dict(tt_leaves)[p].experts}
+    line += (f"; stored bytes one call of each TT leaf reads, summed "
+             f"{sum(info['call_bytes'].values()):,}"
+             + "".join(f", {p} {n:,}" for p, n in banks.items()))
     info["line"] = line
     return params_tt, payload, info, params
 

@@ -1,11 +1,22 @@
 """The CUDA kernels against their plain PyTorch versions on the card.
 
-* The four chain kernels (max|Δ| <= 2e-4·max|ref|), at full-width
-  qwen1.5-0.5b chain shapes and ragged small ones, B in {1, 4, 64}, with
-  float32, bfloat16 and int8 tail cores; and their expert-batched routes
-  (the same bound) at olmoe-1b-7b's bank shapes, synthetic depth-3 and
-  ragged chains, 64 experts of 1, 4 or 64 tokens and 3 experts of 9, each
-  launch counted under its route.
+* The four chain kernels (max|Δ| <= 2e-4·max|ref|) as ``tt_apply`` runs
+  them, from the stored tensors with the lead absorbed in phase A
+  (``cases.stored_case``), at the full-width stored shapes of qwen1.5-0.5b
+  (wq/wo/MLP), olmoe-1b-7b's attention and recurrentgemma-2b (wq, MLP; also
+  at the prefill's 8,192 rows) and ragged ones, B in {1, 4, 64}, float32,
+  bfloat16 and int8 storage; olmoe-1b-7b's three banks and synthetic
+  depth-3 and ragged banks at 64 experts of 1, 4 or 64 tokens and 3 of 9,
+  bf16 and int8 on the tensor-core route (the route counter), float32 on
+  FFMA.  Integer-valued inputs (every partial sum below 2^24) give results
+  bit-exact to the float64 product, tensor-core routes included; repeat
+  calls are bit-identical; one call is two chain kernels and nothing else
+  (the profiler); bf16 x gives a bf16 y within half an output ulp more; a
+  captured call replays bit-identical after a larger call.  The
+  absorbed-chain API (r_s = 1) of the four kernels at full-width
+  qwen1.5-0.5b chain shapes and ragged small ones, and its
+  expert-batched routes at olmoe-1b-7b's bank shapes, synthetic depth-3
+  and ragged chains, each launch counted under its route.
 * The TTD-engine kernels (panel factor, WY passes, sort, truncation; the
   case table of ``kernels/engine_cases.py``, shared with ``chip_smoke.py``)
   at full-width shapes, ResNet-32's batched shapes, ragged shapes and
@@ -49,6 +60,7 @@ import pytest
 import torch
 
 from repro_torch.core.svd import svd
+from repro_torch.core.tt_linear import tt_apply, tt_apply_experts
 from repro_torch.kernels import engine_cases as ec
 from repro_torch.kernels.block_update import ops as wy
 from repro_torch.kernels.flash_attention import cases as flash_cases
@@ -104,9 +116,203 @@ def test_batched_kernels_match_plain_on_card(cuda_device, kind, shape, e, c):
         counts = dict(ops.launches)
         ref = plain()
         torch.cuda.synchronize()
-        assert counts == {name: 1, name[:-len("_batched")]: 1}, counts
+        # the absorbed API's per-expert first cores run phase A on FFMA
+        assert counts == {name: 1, name[:-len("_batched")]: 1,
+                          f"{name}_fma": 1}, counts
         err = float((got - ref).abs().max())
         assert err <= 2e-4 * float(ref.abs().max()), (name, dtype, err)
+
+
+STORED = [(name, split, shapes, None, b)
+          for name, (split, shapes) in {**cases.STORED_SHAPES,
+                                        **cases.RAGGED_STORED}.items()
+          for b in (1, 4, 64)] + [
+    (name, split, shapes, None, 8192)
+    for name, (split, shapes) in cases.STORED_SHAPES.items()
+    if name.startswith("recurrentgemma")]
+STORED += [(name, split, shapes, e, c)
+           for name, (split, shapes) in cases.STORED_BANKS.items()
+           for e, c in cases.BATCHED_EC]
+
+
+def _route(name, dtype, shapes, experts):
+    """The launch keys one stored call must add."""
+    if not experts:
+        return {name: 1}
+    route = "fma" if dtype == torch.float32 else "mma"
+    return {name: 1, name[:-len("_batched")]: 1, f"{name}_{route}": 1}
+
+
+# max|Δ| / max|ref| of a call by x's dtype: bf16 x gives a bf16 y, which
+# may sit half an output ulp (2^-8·|y|) from the float32 plain version
+X_TOL = {torch.float32: 2e-4, torch.bfloat16: 2.0 ** -8 + 2e-4}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("what,split,shapes,experts,b", STORED)
+@pytest.mark.parametrize("x_dtype", list(X_TOL))
+def test_stored_chains_match_plain_on_card(cuda_device, what, split, shapes,
+                                           experts, b, x_dtype):
+    """One tt_apply / tt_apply_experts call from the stored tensors (the
+    lead absorbed in phase A) against the plain version (einsum absorption,
+    then the chain, in float32 from the same x), float32, bfloat16 and int8
+    storage, float32 x (2e-4·max|ref|) and bf16 x read as bf16 and y
+    written as bf16 (2^-8·max|ref| more), as chip_smoke.py; each call
+    counted once under its kernel (and a bank under its phase-A route: the
+    tensor cores for bf16 and int8)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    for dtype in cases.TAIL_DTYPES:
+        name, kernel, plain, _ = cases.stored_case(
+            split, shapes, b, dtype, gen, cuda_device, experts=experts,
+            x_dtype=x_dtype)
+        ops.reset_launches()
+        got = kernel()
+        counts = dict(ops.launches)
+        ref = plain()
+        torch.cuda.synchronize()
+        assert counts == _route(name, dtype, shapes, experts), counts
+        assert got.dtype == x_dtype
+        err = float((got.float() - ref).abs().max())
+        assert err <= X_TOL[x_dtype] * float(ref.abs().max()), (
+            what, dtype, err)
+
+
+def _exact(split, shapes, x, lead, cores, experts):
+    """The call's float64 product on the same integer tensors, and the
+    largest intermediate magnitude of the chain (x · first core, then
+    each core)."""
+    d = [c.double() for c in cores]
+    last = d[-1].reshape(d[-1].shape[:2])
+    if experts:
+        t = torch.einsum("ecn,snr,es->ecr", x.double(), d[0], lead.double())
+        if len(d) == 2:
+            return torch.einsum("ecr,rm->ecm", t, last), t.abs().max()
+        t2 = torch.einsum("ecr,rpq->ecpq", t, d[1])
+        y = torch.einsum("ecpq,qj->ecpj", t2, last)
+        return y.reshape(*y.shape[:2], -1), max(t.abs().max(),
+                                                t2.abs().max())
+    if split == 2:
+        x3 = x.double().reshape(x.shape[0], shapes[0][1], shapes[1][1])
+        t = torch.einsum("bap,sar,s->bpr", x3, d[0], lead.double())
+        t2 = torch.einsum("bpr,rpq->bq", t, d[1])
+        return t2 @ last, max(t.abs().max(), t2.abs().max())
+    t = torch.einsum("bn,snr,s->br", x.double(), d[0], lead.double())
+    if len(d) == 2:
+        return t @ last, t.abs().max()
+    t2 = torch.einsum("br,rpq->bpq", t, d[1])
+    return (torch.einsum("bpq,qj->bpj", t2, last).reshape(x.shape[0], -1),
+            max(t.abs().max(), t2.abs().max()))
+
+
+EXACT = [(name, split, shapes, None)
+         for name, (split, shapes) in cases.STORED_SHAPES.items()
+         if name.startswith("qwen")] + [
+    (name, split, shapes, 64)
+    for name, (split, shapes) in cases.STORED_BANKS.items()]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("what,split,shapes,experts", EXACT)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+def test_integer_inputs_are_exact_on_card(cuda_device, what, split, shapes,
+                                          experts, dtype, x_dtype):
+    """Integer-valued lead, cores and x (``stored_case(integer=True)``),
+    scales 1: every partial sum is an integer below 2^24, so the call
+    equals the float64 product bit for bit — on the banks' tensor-core
+    routes (bf16 m16n8k16, int8 m16n8k32) and the FFMA routes alike.  With
+    bf16 x (exact: its values are -1, 0, 1) y is that product rounded once
+    to bf16."""
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    b = 1 if experts else 4
+    lead, ls, cores, scales = cases.stored_tensors(
+        shapes, dtype, gen, cuda_device, experts, integer=True)
+    leaf = cases.stored_leaf(split, shapes, lead, ls, cores, scales, experts)
+    xs = (experts, b, leaf.in_shape[0]) if experts else (b, leaf.in_shape[0])
+    x = torch.randint(-1, 2, xs, generator=gen, device=cuda_device).float()
+    got = (tt_apply_experts(x.to(x_dtype), leaf) if experts
+           else tt_apply(x.to(x_dtype), leaf))
+    want, peak = _exact(split, shapes, x, lead, cores, experts)
+    assert max(float(peak), float(want.abs().max())) < 2**24
+    assert torch.equal(got, want.float().to(x_dtype)), (what, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("what,split,shapes,experts", EXACT)
+def test_stored_repeat_calls_are_identical(cuda_device, what, split, shapes,
+                                           experts):
+    """Fixed-order sums and integer tickets, no float atomics: the same
+    call twice gives the same bits, in every storage type."""
+    gen = torch.Generator(device=cuda_device).manual_seed(6)
+    for dtype in cases.TAIL_DTYPES:
+        _, kernel, _, _ = cases.stored_case(split, shapes, 4, dtype, gen,
+                                            cuda_device, experts=experts)
+        first = kernel()
+        assert torch.equal(first, kernel()), (what, dtype)
+
+
+@pytest.mark.cuda
+def test_one_stored_call_is_two_kernels_on_card(cuda_device):
+    """A tt_apply call launches its two chain kernels and nothing else (no
+    cast, einsum or elementwise kernel), for a single chain and a bank."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    gen = torch.Generator(device=cuda_device).manual_seed(7)
+    for split, shapes, experts in (
+            (*cases.STORED_SHAPES["qwen1.5-0.5b wo"], None),
+            (*cases.STORED_BANKS["olmoe-1b-7b w_down"], 64)):
+        _, kernel, _, _ = cases.stored_case(split, shapes, 4, torch.bfloat16,
+                                            gen, cuda_device, experts=experts,
+                                            x_dtype=torch.bfloat16)
+        kernel()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            kernel()
+            torch.cuda.synchronize()
+        names = [e.key for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA for _ in range(e.count)]
+        assert len(names) == 2 and all("_kernel" in n for n in names), names
+
+
+@pytest.mark.cuda
+def test_stored_calls_replay_in_a_cuda_graph(cuda_device):
+    """A call captured in a CUDA graph (after one call on the capture
+    stream) replays to the eager result bit for bit, also after a larger
+    call has run outside the graph: a call's scratch comes from the caching
+    allocator, so the graph keeps its own.  A capture on a stream no call
+    has run on, which would need new ticket counters, raises."""
+    gen = torch.Generator(device=cuda_device).manual_seed(8)
+    for (split, shapes), experts, more in (
+            (cases.STORED_SHAPES["qwen1.5-0.5b wq/wk/wv"], None, 512),
+            (cases.STORED_BANKS["olmoe-1b-7b w_down"], 64, 16)):
+        _, kernel, _, _ = cases.stored_case(split, shapes, 4, torch.bfloat16,
+                                            gen, cuda_device, experts=experts,
+                                            x_dtype=torch.bfloat16)
+        want = kernel()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            kernel()
+        torch.cuda.synchronize()
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g, stream=side):
+            got = kernel()
+        _, larger, _, _ = cases.stored_case(split, shapes, more,
+                                            torch.bfloat16, gen, cuda_device,
+                                            experts=experts)
+        larger()
+        got.zero_()
+        g.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), (shapes, experts)
+        g.reset()
+    split, shapes = cases.STORED_SHAPES["qwen1.5-0.5b wq/wk/wv"]
+    _, kernel, _, _ = cases.stored_case(split, shapes, 4, torch.bfloat16, gen,
+                                        cuda_device)
+    g = torch.cuda.CUDAGraph()
+    with pytest.raises(RuntimeError, match="capture stream"):
+        with torch.cuda.graph(g, stream=torch.cuda.Stream()):
+            kernel()
 
 
 @pytest.mark.cuda

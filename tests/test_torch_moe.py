@@ -341,7 +341,15 @@ def test_serve_cli_on_cpu(weights, capsys):
         "--arch", ARCH, "--reduced", "--batch", "2", "--prompt-len", "5",
         "--gen", "4", "--weights", weights, "--device", "cpu"]))
     out = capsys.readouterr().out
-    assert "expert banks' lead-absorbed first cores" in out
+    assert "stored bytes one call of each TT leaf reads" in out
+    # a bank's call reads one layer's lead rows and the shared cores: no
+    # absorbed (E, n1, r1) first cores any more
+    gate = res["params"].layers.moe.w_gate
+    assert res["info"]["call_bytes"]["layers.moe.w_gate"] == (
+        gate.lead[0].numel() * gate.lead.element_size()
+        + sum(c.numel() * c.element_size() for c in gate.cores)
+        + sum(4 * s.numel() for s in (gate.scales or []))
+        + (0 if gate.lead_scale is None else 4 * gate.lead_scale[0].numel()))
     assert "decode 3 steps" in out
     assert res["generated"].shape == (2, 4)
     info, ver = res["info"], res["verify"]

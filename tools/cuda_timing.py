@@ -4,7 +4,10 @@
 ``fn`` after a few warm-up calls (the host's time to issue the call shows
 in it when the card waits for the host); ``device_ms(fn)`` is the card's
 own time per call of each kernel ``fn`` launches, from ``torch.profiler``
-(``kernel_ms`` reads a profile); ``PhaseTimers`` adds up the host seconds
+(``kernel_ms`` reads a profile; a session that sees no kernel gives {});
+``graph_ms(fn)`` is the card's time per call with no host in the way and
+no profiler, from CUDA events around replays of a CUDA graph of calls
+(``capture`` makes one); ``PhaseTimers`` adds up the host seconds
 of each compression phase (synchronized at the phase boundaries) by
 wrapping the functions the compression path calls, in whichever
 ``repro_torch`` is imported.  Needs a CUDA card.
@@ -79,6 +82,44 @@ def device_ms(fn, calls: int = 10) -> dict:
             fn()
         torch.cuda.synchronize()
     return {k: ms / calls for k, (ms, _) in kernel_ms(prof).items()}
+
+
+def capture(fn, calls: int = 1, keep_graph: bool = False):
+    """A CUDA graph of ``calls`` calls of ``fn``, captured on a side stream
+    after one warm-up call on that stream (what a call sets up for its
+    stream, it sets up outside the capture)."""
+    s = torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s):
+        fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph(keep_graph=keep_graph)
+    with torch.cuda.graph(g, stream=s):
+        for _ in range(calls):
+            fn()
+    torch.cuda.synchronize()
+    return g
+
+
+def graph_ms(fn, calls: int = 20, reps: int = 10) -> float:
+    """Device ms per call of ``fn``: ``calls`` calls in one CUDA graph,
+    replayed ``reps`` times after a warm-up replay, the median replay
+    between CUDA events over ``calls``.  The kernels' time and the graph's
+    own gaps between them; no host time and no profiler."""
+    g = capture(fn, calls)
+    g.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        g.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / calls)
+    g.reset()
+    return statistics.median(times)
 
 
 class PhaseTimers:

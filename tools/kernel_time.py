@@ -6,6 +6,8 @@ to compare two checkouts on one card.
         [--shape M,N,B[,PAD]] ...
     python3 tools/kernel_time.py [--src DIR] --case panel [--shape [B,]M,b]
     python3 tools/kernel_time.py [--src DIR] --case sort [--shape [B,]n]
+    python3 tools/kernel_time.py [--src DIR] --case chain \
+        [--shape NAME,DTYPE,B] ...
 
 ``--src`` is the ``src`` directory whose ``repro_torch`` is imported (and
 whose kernels are built; default: this checkout's).  Each case prints one
@@ -43,6 +45,25 @@ calls (``tools/cuda_timing.time_ms``) and the card's name:
   Default shapes: n = 2,816 (qwen1.5-0.5b's longest σ) and 9 x 64
   (ResNet-32's batched bucket).
 
+* ``chain``: one whole ``tt_apply`` call (``tt_apply_experts`` for a bank)
+  on a TTLinear of one layer built here from stored tensors (the lead row
+  or rows, the first core (r_s, n1, r1), the tail cores, in ``DTYPE``
+  bf16, int8 — absmax scales per core and lead row, as ``quantize_tt`` —
+  or f32), unit-normal draws from seed 2, bf16 x of B rows (B tokens per
+  expert for a bank; f32 x for f32 storage).  So the parent's absorption
+  (cast, einsum, then its kernels) and a fused kernel are timed on like
+  terms.  Beside it one ``torch.einsum`` of x, the cores and the lead (the
+  library yardstick; cores widened and dequantized beforehand), max|Δ|
+  against it, the device time of each kernel either launches (null where
+  the profiler saw none), the time of one call replayed in a CUDA graph of
+  20 calls (``cuda_timing.graph_ms``, for the call and the einsum) and the
+  number of device kernels of one call.  NAME is a stored chain of
+  ``CHAIN_SHAPES`` (full-width qwen1.5-0.5b, olmoe-1b-7b and
+  recurrentgemma-2b, eps 0.2, seed 0).  Default: the targets' calls
+  (qwen wq bf16 B 4, olmoe w_gate bf16 and int8 at 64 x 1) and the other
+  main-path chains at B 4, recurrentgemma-2b's MLP at the prefill's 8,192
+  rows.
+
 Run it once per checkout and side, alternating the sides (parent, change,
 change, parent), in one call on one card.
 """
@@ -56,6 +77,29 @@ TOOLS = os.path.dirname(os.path.abspath(__file__))
 WY_SHAPES = ["19447808,32,32,0", "24576,2784,32,32"]
 PANEL_SHAPES = ["19447808,32", "24576,32"]
 SORT_SHAPES = ["2816", "9,64"]
+# stored chains: (split, [first core (r_s, n1, r1), tail cores], experts)
+CHAIN_SHAPES = {
+    "qwen-wq": (1, [(24, 1024, 417), (417, 16, 18), (18, 64, 1)], 0),
+    "qwen-wo": (2, [(24, 16, 323), (323, 64, 38), (38, 1024, 1)], 0),
+    "qwen-up": (1, [(24, 1024, 31), (31, 2816, 1)], 0),
+    "qwen-down": (1, [(24, 2816, 31), (31, 1024, 1)], 0),
+    "olmoe-wq": (1, [(16, 2048, 526), (526, 16, 20), (20, 128, 1)], 0),
+    "olmoe-wo": (2, [(16, 16, 238), (238, 128, 43), (43, 2048, 1)], 0),
+    "olmoe-gate": (1, [(992, 2048, 43), (43, 1024, 1)], 64),
+    "olmoe-down": (1, [(977, 1024, 44), (44, 2048, 1)], 64),
+    "rg-wq": (1, [(8, 2560, 377), (377, 10, 22), (22, 256, 1)], 0),
+    "rg-up": (1, [(8, 2560, 31), (31, 7680, 1)], 0),
+    "rg-down": (1, [(8, 7680, 31), (31, 2560, 1)], 0),
+    "rg-wo": (2, [(8, 10, 79), (79, 256, 45), (45, 2560, 1)], 0),
+    "rg-wk": (1, [(8, 2560, 40), (40, 1, 22), (22, 256, 1)], 0),
+}
+CHAIN_CASES = ["qwen-wq,bf16,4", "olmoe-gate,bf16,1", "olmoe-gate,int8,1",
+               "qwen-wq,int8,4", "qwen-wo,bf16,4", "qwen-wo,int8,4",
+               "qwen-up,bf16,4", "qwen-up,int8,4", "qwen-down,bf16,4",
+               "olmoe-down,bf16,1", "olmoe-down,int8,1", "olmoe-gate,f32,1",
+               "olmoe-wq,bf16,4", "olmoe-wo,bf16,4", "rg-wq,bf16,4",
+               "rg-up,bf16,8192", "rg-down,bf16,8192", "rg-wq,bf16,8192",
+               "rg-wo,bf16,8192", "rg-wk,bf16,8192"]
 
 
 def flash(build, torch, time_ms, src):
@@ -172,14 +216,127 @@ def sort(build, torch, time_ms, device_ms, src, shapes):
                           "device": torch.cuda.get_device_name(0)}))
 
 
+def _chain_inputs(torch, spec):
+    """(TTLinear of one layer, x, call, library call) of a ``--shape``."""
+    from repro_torch.core import tt_linear as ttl
+    name, dt, b = spec.split(",")
+    split, shapes, experts = CHAIN_SHAPES[name]
+    dtype = {"bf16": torch.bfloat16, "int8": torch.int8,
+             "f32": torch.float32}[dt]
+    gen = torch.Generator(device="cuda").manual_seed(2)
+
+    def rn(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda")
+
+    rs = shapes[0][0]
+    lead = rn(*((experts, rs) if experts else (rs,)))
+    cores = [rn(*c) / c[0] ** 0.5 for c in shapes]
+    if dtype == torch.int8:
+        lq, ls = ttl.quantize_array(lead, axis=-1)
+        qs = [ttl.quantize_array(c) for c in cores]
+        lead_w = ttl.dequantize_array(lq, ls, axis=-1)
+        wide = [ttl.dequantize_array(q, sc) for q, sc in qs]
+        leaf = ttl.TTLinear(lead=lq, cores=[q for q, _ in qs], split=split,
+                            in_shape=(0,), out_shape=(0,),
+                            experts=experts or None,
+                            scales=[sc for _, sc in qs], lead_scale=ls)
+    else:
+        lead, cores = lead.to(dtype), [c.to(dtype) for c in cores]
+        lead_w, wide = lead.float(), [c.float() for c in cores]
+        leaf = ttl.TTLinear(lead=lead, cores=cores, split=split,
+                            in_shape=(0,), out_shape=(0,),
+                            experts=experts or None)
+    n_in = shapes[0][1] * (shapes[1][1] if split == 2 else 1)
+    n_out = 1
+    for c in shapes[split:]:
+        n_out *= c[1]
+    leaf.in_shape, leaf.out_shape = (n_in,), (n_out,)
+    b = int(b)
+    x = rn(*((experts, b, n_in) if experts else (b, n_in)))
+    x = x.to(torch.float32 if dtype == torch.float32 else torch.bfloat16)
+    xf = x.float()
+    last = wide[-1].reshape(wide[-1].shape[:2])
+    if experts:
+        def call():
+            return ttl.tt_apply_experts(x, leaf)
+
+        def lib():
+            return torch.einsum("ecn,snr,es,rm->ecm", xf, wide[0], lead_w,
+                                last)
+    elif len(shapes) == 2:
+        def call():
+            return ttl.tt_apply(x, leaf)
+
+        def lib():
+            return torch.einsum("bn,snr,s,rm->bm", xf, wide[0], lead_w, last)
+    elif split == 1:
+        def call():
+            return ttl.tt_apply(x, leaf)
+
+        def lib():
+            return torch.einsum("bn,snr,s,rpq,qj->bpj", xf, wide[0], lead_w,
+                                wide[1], last).reshape(b, -1)
+    else:
+        x3 = xf.reshape(b, shapes[0][1], shapes[1][1])
+
+        def call():
+            return ttl.tt_apply(x, leaf)
+
+        def lib():
+            return torch.einsum("bap,sar,s,rpq,qj->bj", x3, wide[0], lead_w,
+                                wide[1], last)
+    return call, lib
+
+
+def _launches(torch, fn, calls=5):
+    """Device kernels one call of ``fn`` launches (mean over ``calls``)."""
+    from cuda_timing import kernel_ms
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return sum(n for _, n in kernel_ms(prof).values()) / calls
+
+
+def chain(build, torch, time_ms, device_ms, src, shapes):
+    from cuda_timing import graph_ms
+    from repro_torch.kernels.tt_contract import ops
+    for spec in shapes:
+        call, lib = _chain_inputs(torch, spec)
+        ref = lib()
+        err = float((call().float() - ref).abs().max())
+        dev, lib_dev = device_ms(call), device_ms(lib)
+        kernels = _launches(torch, call)
+        print(json.dumps({"src": src, "case": "chain", "shape": spec,
+                          "ms": time_ms(call), "library_ms": time_ms(lib),
+                          "graph_ms": graph_ms(call),
+                          "library_graph_ms": graph_ms(lib),
+                          "device_ms": sum(dev.values()) if dev else None,
+                          "library_device_ms": (sum(lib_dev.values())
+                                                if lib_dev else None),
+                          "device_by_kernel": dev,
+                          "library_device_by_kernel": lib_dev,
+                          "kernels_a_call": kernels,
+                          "max_abs_err_vs_library": err,
+                          "ref_max": float(ref.abs().max()),
+                          "ptxas": _ptxas(build, ops.SOURCE, "kernel"),
+                          "device": torch.cuda.get_device_name(0)}),
+              flush=True)
+        del call, lib, ref
+        torch.cuda.empty_cache()
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--src", default=os.path.join(TOOLS, "..", "src"))
-    ap.add_argument("--case", choices=("flash", "wy_vta", "panel", "sort"),
-                    default="flash")
+    ap.add_argument("--case", choices=("flash", "wy_vta", "panel", "sort",
+                                       "chain"), default="flash")
     ap.add_argument("--shape", action="append",
                     help="wy_vta: M,N,B[,PAD]; panel: [B,]M,b; sort: "
-                         "[B,]n (repeatable)")
+                         "[B,]n; chain: NAME,DTYPE,B (repeatable)")
     args = ap.parse_args()
     sys.path.insert(0, os.path.abspath(args.src))
     sys.path.insert(0, TOOLS)
@@ -199,9 +356,12 @@ def main() -> None:
     elif args.case == "panel":
         panel(build, torch, time_ms, device_ms, args.src,
               args.shape or PANEL_SHAPES)
-    else:
+    elif args.case == "sort":
         sort(build, torch, time_ms, device_ms, args.src,
              args.shape or SORT_SHAPES)
+    else:
+        chain(build, torch, time_ms, device_ms, args.src,
+              args.shape or CHAIN_CASES)
 
 
 if __name__ == "__main__":
