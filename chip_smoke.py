@@ -169,7 +169,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from cuda_timing import (  # noqa: E402
-    PhaseTimers, capture, gap_ms, graph_ms, kernel_ms, time_ms)
+    PhaseTimers, gap_ms, graph_ms, graph_node_types, kernel_ms, time_ms)
 
 # H100 SXM published peaks (NVIDIA data sheet, 700 W): HBM bytes/s and f32
 # FLOP/s outside the tensor cores (the kernels' FFMA path)
@@ -491,24 +491,8 @@ def profile_call(fn, calls: int = 5):
 
 def graph_nodes(fn) -> list:
     """The node types (0 = kernel, 1 = copy, 2 = fill, ...) of a CUDA graph
-    captured from one call of ``fn`` after a warm-up call on the capture
-    stream (``cuda_timing.capture``): the device work the call enqueues,
-    read exactly from the driver."""
-    import ctypes
-    g = capture(fn, 1, keep_graph=True)
-    cuda = ctypes.CDLL("libcuda.so.1")
-    graph = ctypes.c_void_p(g.raw_cuda_graph())
-    n = ctypes.c_size_t(0)
-    code = cuda.cuGraphGetNodes(graph, None, ctypes.byref(n))
-    nodes = (ctypes.c_void_p * max(n.value, 1))()
-    code = code or cuda.cuGraphGetNodes(graph, nodes, ctypes.byref(n))
-    types = []
-    for i in range(n.value):
-        t = ctypes.c_int(-1)
-        code = code or cuda.cuGraphNodeGetType(ctypes.c_void_p(nodes[i]),
-                                               ctypes.byref(t))
-        types.append(t.value)
-    g.reset()
+    of one call of ``fn`` (``cuda_timing.graph_node_types``)."""
+    types, code = graph_node_types(fn)
     check(code == 0, f"reading a captured graph failed: CUresult {code}")
     return types
 
@@ -715,7 +699,8 @@ ENGINE_KERNELS = {"wy pass 1": ("vta_partial_kernel", "vta_reduce_kernel"),
                   "wy pass 2": ("wy_apply_kernel",),
                   "panel factor": ("panel_",),
                   "sort": ("bitonic_sort_kernel",),
-                  "truncate": ("frob_truncate_kernel",)}
+                  "truncate": ("truncate_warp_kernel",
+                               "truncate_block_kernel")}
 # the panel factor's routes by the names of their CUDA functions
 PANEL_ROUTES = {"smem": ("panel_smem_kernel",), "tsqr": ("panel_tsqr_",),
                 "sweep": ("panel_sweep_kernel", "panel_finalize_kernel")}
@@ -1081,6 +1066,16 @@ def engine_kernel_phase(shapes: dict) -> dict:
                     r.setdefault("by_shape", {})[str(shape)] = {
                         "ms": ms, "plain_ms": p_ms, "library_ms": l_ms,
                         "bound_ms": bound, "calls": main[shape]}
+                if kind.startswith("truncate"):   # one kernel a call
+                    nodes = graph_nodes(case.kernel)
+                    g_ms = graph_ms(case.kernel)
+                    check(nodes == [0], f"{kind} {shape}: one call is "
+                                        f"graph nodes {nodes}, not one "
+                                        f"kernel")
+                    print(f"[kernel] {kind} {shape}: graph {g_ms:.4f} ms "
+                          f"a call, graph nodes {nodes}")
+                    if case.nbytes >= r.get("bytes", -1):
+                        r["graph_ms"] = g_ms
                 if case.nbytes >= r.get("bytes", -1):
                     r.update(shape=list(shape), ms=ms, plain_ms=p_ms,
                              library_ms=l_ms, bound_ms=bound,
@@ -1855,7 +1850,8 @@ def main() -> int:
                          >= r["ops"] / F32_FLOPS else "operations"),
             "library_ms": r["library_ms"],
             "timed": f"one call at the largest main-path shape {r['shape']}",
-            **{k: r[k] for k in ("by_shape", "ptxas", "layout") if k in r},
+            **{k: r[k] for k in ("by_shape", "ptxas", "layout", "graph_ms")
+               if k in r},
             **({"routes": {route: engine_counts.get(f"{keys[0]}_{route}", 0)
                            for route in ("smem", "tsqr", "sweep")}}
                if name.startswith("panel") else {}),

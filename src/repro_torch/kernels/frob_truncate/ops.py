@@ -3,9 +3,10 @@
     delta_truncate(s (n,), δ)            → (tail norms (n,), rank () int32)
     delta_truncate_batched(s (B, n), δ (B,)) → (tails (B, n), ranks (B,))
 
-For CUDA tensors each launches ``csrc/frob_truncate.cu`` (one block per
-row); for tensors on the CPU it runs the plain version in ``ref.py``.  A
-failed build or launch raises.  ``launches`` counts kernel launches per
+For CUDA tensors each launches ``csrc/frob_truncate.cu`` (one kernel a
+call: a warp a row up to n = 1,024, a block a row above); for tensors on
+the CPU it runs the plain version in ``ref.py``.  A failed build or launch
+raises.  ``launches`` counts kernel launches per
 wrapper, and ``"plain_on_cuda"`` counts calls of the plain version with a
 CUDA tensor (the comparisons in ``chip_smoke.py``; the path never makes
 one).  δ may be a Python float or a tensor (a device scalar, or (B,) for
@@ -40,10 +41,8 @@ def reset_launches() -> None:
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
-    lib = _build.load_bound(SOURCE, {
-        "frob_truncate": [_P, _P, ctypes.c_float, _P, _P, _I, _I, _P]})
-    lib.max_shared_bytes.restype = _I
-    return lib
+    return _build.load_bound(SOURCE, {
+        "frob_truncate": [_P, _P, _I, ctypes.c_float, _P, _P, _I, _I, _P]})
 
 
 def build() -> None:
@@ -51,28 +50,42 @@ def build() -> None:
     _lib()
 
 
-def _launch(s2: torch.Tensor, delta, name: str):
-    """s2 (rows, n) float32 on the card; delta a float or a device tensor
-    with one element per row (or one for all)."""
-    _build.check_cuda(name, s2, dtype=torch.float32)
-    rows, n = s2.shape
-    lib = _lib()
-    if n * 4 > lib.max_shared_bytes():
-        raise ValueError(f"{name}: n={n} exceeds one block's shared memory")
-    tail = torch.empty_like(s2)
-    rank = torch.empty(rows, dtype=torch.int32, device=s2.device)
+def _launch(s: torch.Tensor, delta, name: str):
+    """s (n,) or (rows, n) on the card, taken as contiguous float32; delta
+    a float or a device tensor with one element per row (or one for all).
+    Tails in s's shape, ranks in its leading shape.  A call is one kernel
+    launch and the few host steps it needs (the wrapper's time is most of
+    a call's at the sizes TT-SVD gives it)."""
+    if s.dtype != torch.float32 or not s.is_contiguous():
+        s = s.float().contiguous()
+    dev = s.device
+    n = s.shape[-1]
+    rows = s.numel() // n if n else 0
+    tail = torch.empty_like(s)
+    rank = s.new_empty(s.shape[:-1], dtype=torch.int32)
     if rows == 0 or n == 0:
         return tail, rank.fill_(0)
-    dvec, dscalar = None, 0.0
+    dptr, stride, dscalar = None, 0, 0.0
     if isinstance(delta, torch.Tensor):
-        dvec = delta.to(device=s2.device, dtype=torch.float32).reshape(-1)
-        dvec = dvec.expand(rows).contiguous()
+        if delta.device != dev or delta.dtype != torch.float32:
+            delta = delta.to(device=dev, dtype=torch.float32)
+        if delta.numel() not in (1, rows):
+            raise ValueError(f"{name}: {delta.numel()} values of δ for "
+                             f"{rows} rows")
+        if not delta.is_contiguous():
+            delta = delta.contiguous()
+        dptr = delta.data_ptr()
+        stride = int(delta.numel() > 1)   # one δ for every row: stride 0
     else:
         dscalar = float(delta)
-    stream = torch.cuda.current_stream(s2.device).cuda_stream
+    lib = _lib()
+    # the raw stream handle: torch.cuda.current_stream(dev).cuda_stream
+    # builds a Stream object, 3.2 µs of a ~16 µs call on an H100's host
+    # (PERF.md)
     code = lib.frob_truncate(
-        s2.data_ptr(), None if dvec is None else dvec.data_ptr(), dscalar,
-        tail.data_ptr(), rank.data_ptr(), rows, n, stream)
+        s.data_ptr(), dptr, stride, dscalar, tail.data_ptr(),
+        rank.data_ptr(), rows, n, torch._C._cuda_getCurrentRawStream(
+            dev.index))
     _build.raise_on(lib, code, name)
     launches[name] += 1
     return tail, rank
@@ -92,9 +105,7 @@ def delta_truncate(s: torch.Tensor, delta):
         raise ValueError(f"expected σ of shape (n,), got {tuple(s.shape)}")
     if s.device.type == "cpu":
         return frob_truncate_ref(s, delta)
-    tail, rank = _launch(s.float().reshape(1, -1).contiguous(), delta,
-                         "frob_truncate")
-    return tail[0], rank[0]
+    return _launch(s, delta, "frob_truncate")
 
 
 def delta_truncate_batched(s: torch.Tensor, delta):
@@ -104,7 +115,7 @@ def delta_truncate_batched(s: torch.Tensor, delta):
         raise ValueError(f"expected σ of shape (B, n), got {tuple(s.shape)}")
     if s.device.type == "cpu":
         return frob_truncate_ref(s, delta)
-    return _launch(s.float().contiguous(), delta, "frob_truncate_batched")
+    return _launch(s, delta, "frob_truncate_batched")
 
 
 __all__ = [

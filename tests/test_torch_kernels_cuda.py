@@ -38,7 +38,12 @@
   alignments: equal bit for bit to the float64 product rounded to float32
   (every partial sum is an exact integer); and two calls on the same random
   inputs give equal results.  The blocked SVD (phase 2 in float64) within
-  1e-6·σ_max of float64 ``svdvals``.
+  1e-6·σ_max of float64 ``svdvals``.  The truncation kernel around its
+  routes (a warp a row up to n = 1,024, a block a row above, chunks past
+  4,096): n in {1, 31, 32, 33, 1,024, 1,025, 2,816, 4,096, 4,097,
+  8,193}, single and 9 rows, δ a float, a device scalar, one per row, and
+  δ keeping rank 1 or n: tails within 2e-4·max|ref|, ranks equal; one
+  call is one graph node, a kernel (``cuda_timing.graph_node_types``).
 * The flash-attention kernel (``kernels/flash_attention/cases.py``, shared
   with ``chip_smoke.py``): the hybrid path's shape, the reference's sweep,
   causal without window, non-causal, S in {64, 100, 128}, every head dim,
@@ -56,6 +61,9 @@ without one.  Imports no JAX, so it runs on the card's machine:
     python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py
 """
 
+import sys
+from pathlib import Path
+
 import pytest
 import torch
 
@@ -67,8 +75,12 @@ from repro_torch.kernels.flash_attention import cases as flash_cases
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.householder import ops as hh
 from repro_torch.kernels.householder import ref as href
+from repro_torch.kernels.frob_truncate import ops as ft
 from repro_torch.kernels.singular_sort import ops as ss
 from repro_torch.kernels.tt_contract import cases, ops
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "tools"))
+from cuda_timing import graph_node_types  # noqa: E402
 
 
 @pytest.fixture
@@ -385,6 +397,66 @@ def test_engine_kernels_match_plain_on_card(cuda_device, kind, shape,
     if kind.startswith("wy_vta"):
         route = ec.vta_route(kind, shape, aligned)
         assert mod.launches[route] == before.get(route, 0) + 1, route
+
+
+# the truncation kernel's shapes around its routes: one warp a row (n up
+# to 32 values a lane, 1,024), one block a row above (4 values a thread,
+# chunks of 1,024 threads: 4,096 values)
+TRUNCATE_NS = [1, 31, 32, 33, 1_024, 1_025, 2_816, 4_096, 4_097, 8_193]
+
+
+def _truncate_inputs(n, batch, gen, device):
+    shape = (n,) if batch is None else (batch, n)
+    s = torch.sort(torch.rand(shape, generator=gen, device=device), dim=-1,
+                   descending=True).values
+    norm = torch.linalg.vector_norm(s, dim=-1)
+    frac = 0.1 + 0.8 * torch.rand(norm.shape, generator=gen, device=device)
+    return s, norm, frac * norm
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", TRUNCATE_NS)
+@pytest.mark.parametrize("batch", [None, 9])
+@pytest.mark.parametrize("delta", ["float", "scalar", "per_row", "rank_1",
+                                   "rank_n"])
+def test_truncate_shapes_match_plain_on_card(cuda_device, n, batch, delta):
+    """Tails within 2e-4·max|ref| and ranks equal to the plain version's,
+    for δ a Python float, a device scalar, one per row, and δ that keeps
+    rank 1 (above ‖σ‖) or n (0: no tail is below it); one launch a call."""
+    gen = torch.Generator(device=cuda_device).manual_seed(n)
+    s, norm, mid = _truncate_inputs(n, batch, gen, cuda_device)
+    d = {"float": 0.5 * float(norm.flatten()[0]),
+         "scalar": mid.flatten()[0], "per_row": mid,
+         "rank_1": 2.0 * float(norm.max()), "rank_n": 0.0}[delta]
+    fn = ft.delta_truncate if batch is None else ft.delta_truncate_batched
+    counter = "frob_truncate" if batch is None else "frob_truncate_batched"
+    before = ft.launches[counter]
+    tail, rank = fn(s, d)
+    ref_tail, ref_rank = ft.delta_truncate_plain(s, d)
+    torch.cuda.synchronize()
+    assert ft.launches[counter] == before + 1
+    assert tail.shape == s.shape and rank.dtype == torch.int32
+    assert float((tail - ref_tail).abs().max()) <= 2e-4 * float(
+        ref_tail.abs().max())
+    assert torch.equal(rank, ref_rank), (rank, ref_rank)
+    if delta == "rank_1":
+        assert bool((rank == 1).all())
+    if delta == "rank_n":
+        assert bool((rank == n).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,batch", [(64, 9), (2_816, None), (1_025, 3),
+                                     (4_097, None)])
+def test_truncate_call_is_one_kernel(cuda_device, n, batch):
+    """One call enqueues one device kernel and nothing else (no copy, fill
+    or cast), read from a CUDA graph of the call."""
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    s, _, mid = _truncate_inputs(n, batch, gen, cuda_device)
+    fn = ft.delta_truncate if batch is None else ft.delta_truncate_batched
+    for d in (mid, 0.1):
+        types, code = graph_node_types(lambda: fn(s, d))
+        assert code == 0 and types == [0], (types, code)
 
 
 VTA_CASES = [(kind, shape, aligned)

@@ -7,7 +7,8 @@ own time per call of each kernel ``fn`` launches, from ``torch.profiler``
 (``kernel_ms`` reads a profile; a session that sees no kernel gives {});
 ``graph_ms(fn)`` is the card's time per call with no host in the way and
 no profiler, from CUDA events around replays of a CUDA graph of calls
-(``capture`` makes one); ``PhaseTimers`` adds up the host seconds
+(``capture`` makes one; ``graph_node_types`` reads the device work one
+call enqueues from such a graph); ``PhaseTimers`` adds up the host seconds
 of each compression phase (synchronized at the phase boundaries) by
 wrapping the functions the compression path calls, in whichever
 ``repro_torch`` is imported.  Needs a CUDA card.
@@ -99,6 +100,29 @@ def capture(fn, calls: int = 1, keep_graph: bool = False):
             fn()
     torch.cuda.synchronize()
     return g
+
+
+def graph_node_types(fn) -> tuple:
+    """(node types, CUresult) of a CUDA graph captured from one call of
+    ``fn`` after a warm-up call on the capture stream (``capture``): 0 =
+    kernel, 1 = copy, 2 = fill, ...; the device work the call enqueues,
+    read exactly from libcuda (CUresult 0: read)."""
+    import ctypes
+    g = capture(fn, 1, keep_graph=True)
+    cuda = ctypes.CDLL("libcuda.so.1")
+    graph = ctypes.c_void_p(g.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    code = cuda.cuGraphGetNodes(graph, None, ctypes.byref(n))
+    nodes = (ctypes.c_void_p * max(n.value, 1))()
+    code = code or cuda.cuGraphGetNodes(graph, nodes, ctypes.byref(n))
+    types = []
+    for i in range(n.value):
+        t = ctypes.c_int(-1)
+        code = code or cuda.cuGraphNodeGetType(ctypes.c_void_p(nodes[i]),
+                                               ctypes.byref(t))
+        types.append(t.value)
+    g.reset()
+    return types, code
 
 
 def graph_ms(fn, calls: int = 20, reps: int = 10) -> float:
