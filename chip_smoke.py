@@ -95,7 +95,7 @@
       on the bf16 tensor-core route ``flash_attention_mma``) and
       ``impl="xla"`` (plain chunked attention): tokens/s, and the bf16
       differences printed.  Gates in float32 activations at F32_TOL of
-      scale, every flash launch on the float32 FMA route
+      scale, every flash launch on the float32 3xTF32 tensor-core route
       ``flash_attention_f32`` (8 per run): G1 pallas vs xla with dense
       weights (and ``make_eval_step`` at B = 1, S = 4096: losses within
       1e-5 relative); G2 TT-native prefill (flash + chain kernels) vs
@@ -105,16 +105,18 @@
    b'. the stored chains of this compression (``stored_phase``) at B in
       {1, 4, 8192} (8,192: the prefill's rows), as in 3.;
    c. the flash kernel against its plain version at every shape of
-      ``kernels/flash_attention/cases.py`` in float32 (FMA route, TOL of
-      max|ref|) and bfloat16 (mma route, 2e-2 on unit-normal inputs), and
-      in bfloat16 also per element against the route's tile-wise plain
-      version ``mha_tiled`` (``cases.tiled_gap`` within ``TILED_ABS``, on
-      this draw and TILED_DRAWS more);
+      ``kernels/flash_attention/cases.py`` in float32 (3xTF32 route, TOL
+      of max|ref|; also against ``mha_ref`` in float64 within
+      ``cases.F64_REL`` of max|ref|) and bfloat16 (mma route, 2e-2 on
+      unit-normal inputs), and in bfloat16 also per element against the
+      route's tile-wise plain version ``mha_tiled`` (``cases.tiled_gap``
+      within ``TILED_ABS``, on this draw and TILED_DRAWS more);
       S = 200 must raise; ptxas's registers and spills of each route's
       kernels, from the build log; at the path's shape, times of each
-      route, its plain version and one ``scaled_dot_product_attention``
-      call in the route's dtype, each route against its own bound (bf16
-      tensor-core rate for mma, float32 FMA rate for f32).
+      route (CUDA-event median and graph replays), its plain version and
+      one ``scaled_dot_product_attention`` call in the route's dtype, each
+      route against its own bound (the bf16 tensor-core rate for mma; for
+      f32 three TF32 products at the TF32 rate, the FFMA bound beside it).
 6. MoE phase (``models/mlp.moe_apply``, the expert-batched routes of
    ``kernels/tt_contract``):
    a. the main path ``serve --arch olmoe-1b-7b`` at full width and depth
@@ -178,6 +180,7 @@ F32_FLOPS = 67e12
 # dense tensor-core peaks (same source): the banks' absorption route
 BF16_FLOPS = 989e12
 INT8_OPS = 1979e12
+TF32_FLOPS = 495e12  # the float32 flash route's three TF32 products
 TOL = 2e-4       # kernel phase: max|d| <= TOL * max|ref|
 F32_TOL = 1e-4   # main path, float32 logits: max|d| <= F32_TOL * scale
 DEVICE = "cuda"
@@ -1337,16 +1340,18 @@ def hybrid_prefill(served: dict) -> dict:
 
 def flash_phase() -> dict:
     """The flash kernel against its plain version at every shape of
-    ``kernels/flash_attention/cases.py``; times of each route at the hybrid
-    path's shape: bf16 on the mma route, float32 on the FMA route."""
+    ``kernels/flash_attention/cases.py`` (float32 also against ``mha_ref``
+    in float64, within ``cases.F64_REL`` of max|ref|); times of each route
+    at the hybrid path's shape (event median and graph replays): bf16 on
+    the mma route, float32 on the 3xTF32 route."""
     from repro_torch.kernels import build as kbuild
     from repro_torch.kernels.flash_attention import cases as fc
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.flash_attention import ref as fref
     gen = torch.Generator(device=DEVICE).manual_seed(4)
-    peak = {torch.bfloat16: BF16_FLOPS, torch.float32: F32_FLOPS}
     rec = {dtype: {"max_abs_err": 0.0} for dtype in fc.DTYPES}
     rec[torch.bfloat16]["tiled_gap"] = -math.inf
+    rec[torch.float32]["f64_gap"] = 0.0
     for shape in fc.SHAPES:
         for dtype in fc.DTYPES:
             case = fc.flash_case(shape, dtype, gen, DEVICE)
@@ -1362,6 +1367,19 @@ def flash_phase() -> dict:
             line = (f"[kernel] {fa.ROUTES[dtype][0]} {str(dtype)[6:]} "
                     f"(B, S, Hq, Hkv, D, causal, window)={shape}: max|d| "
                     f"{err:.3e} (ref max {scale:.3e})")
+            if dtype == torch.float32:
+                ref64 = fa.mha_ref(*(t.double() for t in case.inputs),
+                                   causal=shape[5], window=shape[6])
+                gap = fc.f64_gap(got, ref64)
+                del ref64
+                f_ok = gap <= fc.F64_REL
+                check(f_ok, f"flash_attention {shape} float32 vs float64: "
+                            f"max|d|/max|ref| {gap:.3e} over "
+                            f"{fc.F64_REL:.3e}")
+                r["f64_gap"] = max(r["f64_gap"], gap)
+                ok = ok and f_ok
+                line += (f", vs float64 max|d|/max|ref| {gap:.3e} (limit "
+                         f"{fc.F64_REL:.3e})")
             if dtype == torch.bfloat16:   # this draw and TILED_DRAWS more
                 draws = [case] + [fc.flash_case(
                     shape, dtype, torch.Generator(device=DEVICE).manual_seed(
@@ -1384,20 +1402,33 @@ def flash_phase() -> dict:
                 continue
             fast = dtype == torch.bfloat16
             ms = time_ms(case.kernel, 20 if fast else 5)
+            g_ms = graph_ms(case.kernel, 10 if fast else 5, 5)
             p_ms = time_ms(case.plain, 3)
             l_ms = time_ms(case.library, 20 if fast else 5)
-            by_ops = case.flops / peak[dtype] >= case.nbytes / HBM_BYTES_PER_S
-            bound = max(case.nbytes / HBM_BYTES_PER_S,
-                        case.flops / peak[dtype]) * 1e3
-            r.update(ms=ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=bound,
+            # the route as built: float32 takes three TF32 products per
+            # float32 product; its FFMA bound is printed beside it
+            flops, rate = ((case.flops, BF16_FLOPS) if fast
+                           else (3 * case.flops, TF32_FLOPS))
+            by_ops = flops / rate >= case.nbytes / HBM_BYTES_PER_S
+            bound = max(case.nbytes / HBM_BYTES_PER_S, flops / rate) * 1e3
+            r.update(ms=ms, graph_ms=g_ms, plain_ms=p_ms, library_ms=l_ms,
+                     bound_ms=bound,
                      bound_by="operations" if by_ops else "bytes")
-            print(f"{line}; kernel {ms:.4f} ms, plain {p_ms:.4f} ms, sdpa "
-                  f"{l_ms:.4f} ms, bound {bound:.5f} ms ({case.flops:.4e} "
-                  f"FLOPs at {peak[dtype] / 1e12:.0f} TFLOP/s, "
-                  f"{case.nbytes:,} bytes; {bound / ms:.1%} of the bound)")
+            extra = ""
+            if not fast:
+                r["bound_ffma_ms"] = max(case.nbytes / HBM_BYTES_PER_S,
+                                         case.flops / F32_FLOPS) * 1e3
+                extra = (f"; FFMA bound {r['bound_ffma_ms']:.5f} ms "
+                         f"({r['bound_ffma_ms'] / ms:.1%})")
+            print(f"{line}; kernel {ms:.4f} ms (graph {g_ms:.4f} ms), "
+                  f"plain {p_ms:.4f} ms, sdpa "
+                  f"{l_ms:.4f} ms, bound {bound:.5f} ms ({flops:.4e} "
+                  f"FLOPs at {rate / 1e12:.0f} TFLOP/s, "
+                  f"{case.nbytes:,} bytes; {bound / ms:.1%} of the bound)"
+                  f"{extra}")
     usage = kbuild.ptxas_usage(fa.SOURCE)
     for dtype, kernel in ((torch.bfloat16, "flash_mma_kernel"),
-                          (torch.float32, "flash_attention_kernel")):
+                          (torch.float32, "flash_tf32x3_kernel")):
         rec[dtype]["ptxas"] = {}
         for fn, (regs, st, ld) in usage.items():
             d = re.search(rf"{kernel}ILi(\d+)E", fn)
@@ -1867,10 +1898,14 @@ def main() -> int:
             "replaces": "src/repro/kernels/flash_attention/kernel.py:93",
             "launches": hybrid["counts"][run].get(name, 0),
             "max_abs_err": r["max_abs_err"],
-            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "ms": r["ms"], "graph_ms": r["graph_ms"],
+            "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
             "ptxas": r["ptxas"],
+            **({"max_rel_err_f64": r["f64_gap"],
+                "bound_ffma_ms": r["bound_ffma_ms"]} if "f64_gap" in r
+               else {}),
             "timed": f"one {str(dtype)[6:]} call at the hybrid prefill's "
                      "shape (B 2, S 4096, 10 Q heads, 1 KV head, D 256, "
                      "window 2048); launches per prefill ("

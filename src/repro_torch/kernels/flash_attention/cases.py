@@ -14,7 +14,8 @@ written once, and 4·D FLOPs (Q Kᵀ and P V) per live (query, key) pair of
 each Q head, counted from the mask.
 
 ``tiled_gap`` holds the bf16 route to its tile-wise plain version
-``ops.mha_tiled`` element by element.
+``ops.mha_tiled`` element by element; ``f64_gap`` holds the float32 route
+to ``ops.mha_ref`` run in float64 (``F64_REL``).
 """
 
 from __future__ import annotations
@@ -62,6 +63,15 @@ DTYPES = (torch.float32, torch.bfloat16)
 # 0.03 at the path's shape.
 TILED_REL = 2 ** -8
 TILED_ABS = 2e-3
+# The float32 route (3xTF32) against ``ops.mha_ref`` in float64:
+# max|kernel - ref64| <= F64_REL·max|ref64|.  The split leaves each product
+# within 2^-21 of exact (lo·lo and the rounding of lo dropped); float32
+# accumulation on the tensor cores, up to one ulp of the running sum per
+# mma rounded toward zero, over the 3·(D + keys)/8 mma steps a row takes
+# (864 at the path's shape) is at most 864·2^-24 ≈ 2^-14.2 of |o| in bias.
+# The tile-wise plain version ``ops.mha_tf32x3`` sits at 2^-20 or less on
+# the CPU; plain TF32 (hi·hi alone) at 2^-12 to 2^-10.6, which this rejects.
+F64_REL = 2 ** -14
 
 
 @dataclass
@@ -106,3 +116,9 @@ def tiled_gap(got: torch.Tensor, tiled: torch.Tensor) -> float:
     agrees with ``mha_tiled`` when this is at most ``TILED_ABS``."""
     return float(((got.float() - tiled).abs() - TILED_REL * tiled.abs())
                  .max())
+
+
+def f64_gap(got: torch.Tensor, ref64: torch.Tensor) -> float:
+    """max|got - ref64| / max|ref64|: the float32 route agrees with float64
+    when this is at most ``F64_REL``."""
+    return float((got.double() - ref64).abs().max() / ref64.abs().max())

@@ -44,16 +44,32 @@
 //     out as coalesced 16-byte stores; rows >= S are never written.
 // At D = 256: 192 KB of shared memory, one block per SM.
 //
-// float32 (flash_attention_f32): the FMA kernel, exact in float32.  One
-// block per (64 query rows, head, batch row), 256 threads in a 16 x 16 grid.
-// The scaled Q tile stays in shared memory in float32; 64-row K/V tiles are
-// walked in order.  Each tile: a 4 x 4 register tile of scores per thread
-// (Q K^T), masked and written to shared memory; four threads per row take
-// the row max and the exponentials (online softmax, m and l per row in
-// shared memory); then the 4 x (D/16) output accumulators of each thread are
-// rescaled and take P V.  Rows are padded by one float against bank
-// conflicts; 214,528 bytes at D = 256.  Its bound is 1.29e11 FLOPs at the
-// 67 TFLOP/s of float32 FMAs: 1.92 ms.
+// float32 (flash_attention_f32): the tensor-core kernel in 3xTF32.  Bound:
+// the same 1.29e11 FLOPs against 185 MB; on FFMA (67 TFLOP/s) 1.92 ms, as
+// three TF32 products per float32 product at the tensor cores' 495 TFLOP/s
+// 0.78 ms.  Design:
+//   * every float32 operand x is split into hi = rna_tf32(x) and lo =
+//     rna_tf32(x - hi) (integer rounding, 5 instructions a split); a
+//     product takes hi*hi + hi*lo + lo*hi on
+//     mma.sync.m16n8k8 tf32 with float32 accumulators (lo*lo, below 2^-22
+//     of the product, is dropped), for Q K^T and for P V, P split in
+//     registers; Q K^T keeps hi*hi and the two small products in separate
+//     accumulators; the output is rescaled only when a row's max moved;
+//   * one block per (query rows, head, batch row), warps of 16 rows,
+//     heaviest query tiles first: 4 warps and 32-key K/V tiles up to D =
+//     128, 8 warps and 16-key tiles at D = 256 (F32Tile); K/V tiles
+//     double-buffered with 16-byte cp.async.cg copies (rows >= S
+//     zero-filled); Q, K and V stay in float32 in shared memory, rows
+//     padded against bank conflicts, and are split as they are read;
+//   * the contraction orders are permuted so that every fragment read is
+//     16 bytes a lane and P's A fragment is the score accumulator itself
+//     (no shuffle, no trip through shared memory): see the kernel;
+//   * the online softmax in the warp with quad shuffles, base 2, as the
+//     bf16 route; masks only on tiles that straddle the diagonal, the
+//     window edge or S; a warp skips a tile wholly masked for its rows;
+//   * O / l stored straight from the accumulators, 16 bytes a lane, a
+//     quad's 128 bytes contiguous; rows >= S are never written.
+// At D = 256: 207,360 bytes of shared memory, one block per SM.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -62,209 +78,9 @@
 
 namespace {
 
-constexpr int kBK = 64;  // key rows per tile (both routes)
+constexpr int kBK = 64;  // key rows per tile (bf16 route)
 constexpr float kMasked = -1e30f;
 constexpr unsigned kFull = 0xffffffffu;
-
-// ---------------------------------------------------------------------------
-// float32: FMA kernel
-// ---------------------------------------------------------------------------
-
-constexpr int kBQ = 64;        // query rows per block
-constexpr int kThreads = 256;  // 16 x 16
-
-template <int D>
-constexpr size_t smem_floats() {
-  // Q (kBQ x D+1), K (kBK x D+1), V (kBK x D), P (kBQ x kBK+1), m, l, alpha
-  return (size_t)kBQ * (D + 1) + (size_t)kBK * (D + 1) + (size_t)kBK * D +
-         (size_t)kBQ * (kBK + 1) + 3 * kBQ;
-}
-
-template <int D>
-__global__ void __launch_bounds__(kThreads) flash_attention_kernel(
-    const float* __restrict__ q, const float* __restrict__ k,
-    const float* __restrict__ v, float* __restrict__ o, int S, int Hq,
-    int Hkv, int causal, int window, float scale) {
-  constexpr int QS = D + 1;
-  constexpr int KS = D + 1;
-  constexpr int PS = kBK + 1;
-  constexpr int CPT = D / 16;  // output columns per thread
-  extern __shared__ float smem[];
-  float* sq = smem;
-  float* sk = sq + kBQ * QS;
-  float* sv = sk + kBK * KS;
-  float* sp = sv + kBK * D;
-  float* s_m = sp + kBQ * PS;
-  float* s_l = s_m + kBQ;
-  float* s_alpha = s_l + kBQ;
-
-  const int q0 = blockIdx.x * kBQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int hk = h / (Hq / Hkv);
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;
-  const int ty = tid / 16;
-
-  const size_t q_row = (size_t)Hq * D;
-  const size_t kv_row = (size_t)Hkv * D;
-  const float* qb = q + (size_t)b * S * q_row + (size_t)h * D;
-  const float* kb = k + (size_t)b * S * kv_row + (size_t)hk * D;
-  const float* vb = v + (size_t)b * S * kv_row + (size_t)hk * D;
-  float* ob = o + (size_t)b * S * q_row + (size_t)h * D;
-
-  for (int i = tid; i < kBQ * D; i += kThreads) {
-    const int r = i / D, c = i % D;
-    const int qr = q0 + r;
-    sq[r * QS + c] = qr < S ? qb[(size_t)qr * q_row + c] * scale : 0.f;
-  }
-  if (tid < kBQ) {
-    s_m[tid] = kMasked;
-    s_l[tid] = 0.f;
-  }
-
-  float acc[4][CPT];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < CPT; ++j) acc[i][j] = 0.f;
-
-  // keys [kv_begin, kv_end) can be live for some row of this block
-  const int q_last = min(q0 + kBQ, S) - 1;
-  const int kv_end = causal ? q_last + 1 : S;
-  const int kv_begin = window > 0 ? max(0, q0 - window + 1) : 0;
-  const int t_begin = kv_begin / kBK;
-  const int t_end = (kv_end + kBK - 1) / kBK;
-  __syncthreads();
-
-  for (int t = t_begin; t < t_end; ++t) {
-    const int k0 = t * kBK;
-    for (int i = tid; i < kBK * D; i += kThreads) {
-      const int r = i / D, c = i % D;
-      const int kr = k0 + r;
-      float kx = 0.f, vx = 0.f;
-      if (kr < S) {
-        kx = kb[(size_t)kr * kv_row + c];
-        vx = vb[(size_t)kr * kv_row + c];
-      }
-      sk[r * KS + c] = kx;
-      sv[r * D + c] = vx;
-    }
-    __syncthreads();
-
-    // scores: rows ty*4 + i, keys tx + 16*j
-    float sc[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) sc[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      float qa[4], ka[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) qa[i] = sq[(ty * 4 + i) * QS + d];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) ka[j] = sk[(tx + 16 * j) * KS + d];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) sc[i][j] = fmaf(qa[i], ka[j], sc[i][j]);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qr = q0 + ty * 4 + i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kr = k0 + tx + 16 * j;
-        float s = sc[i][j];
-        if (kr >= S) {
-          s = -INFINITY;  // past the sequence (S < 64): never weighted
-        } else {
-          bool live = true;
-          if (causal) live = live && qr >= kr;
-          if (window > 0) live = live && qr - kr < window;
-          if (!live) s = kMasked;
-        }
-        sp[(ty * 4 + i) * PS + tx + 16 * j] = s;
-      }
-    }
-    __syncthreads();
-
-    {  // online softmax: four neighbouring lanes per row
-      const int r = tid / 4, part = tid % 4;
-      float* prow = sp + r * PS;
-      const float m_prev = s_m[r];
-      float mx = m_prev;
-      for (int c = part; c < kBK; c += 4) mx = fmaxf(mx, prow[c]);
-      mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 2));
-      float sum = 0.f;
-      for (int c = part; c < kBK; c += 4) {
-        const float p = expf(prow[c] - mx);
-        prow[c] = p;
-        sum += p;
-      }
-      sum += __shfl_xor_sync(kFull, sum, 1);
-      sum += __shfl_xor_sync(kFull, sum, 2);
-      __syncwarp();
-      if (part == 0) {
-        const float alpha = expf(m_prev - mx);
-        s_alpha[r] = alpha;
-        s_l[r] = s_l[r] * alpha + sum;
-        s_m[r] = mx;
-      }
-    }
-    __syncthreads();
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float a = s_alpha[ty * 4 + i];
-#pragma unroll
-      for (int j = 0; j < CPT; ++j) acc[i][j] *= a;
-    }
-#pragma unroll 4
-    for (int kk = 0; kk < kBK; ++kk) {
-      float pa[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) pa[i] = sp[(ty * 4 + i) * PS + kk];
-#pragma unroll
-      for (int j = 0; j < CPT; ++j) {
-        const float vx = sv[kk * D + tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(pa[i], vx, acc[i][j]);
-      }
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty * 4 + i;
-    const int qr = q0 + r;
-    if (qr >= S) continue;
-    float l = s_l[r];
-    if (l == 0.f) l = 1.f;
-#pragma unroll
-    for (int j = 0; j < CPT; ++j)
-      ob[(size_t)qr * q_row + tx + 16 * j] = acc[i][j] / l;
-  }
-}
-
-template <int D>
-int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
-               int S, int Hq, int Hkv, int causal, int window, float scale,
-               void* stream) {
-  const size_t smem = smem_floats<D>() * sizeof(float);
-  cudaError_t e = cudaFuncSetAttribute(
-      flash_attention_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  const dim3 grid((S + kBQ - 1) / kBQ, Hq, B);
-  flash_attention_kernel<D><<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      (const float*)q, (const float*)k, (const float*)v, (float*)o, S, Hq, Hkv,
-      causal, window, scale);
-  return (int)cudaGetLastError();
-}
 
 // ---------------------------------------------------------------------------
 // bfloat16: tensor-core kernel (mma.sync m16n8k16, ldmatrix, cp.async)
@@ -586,6 +402,339 @@ int launch_mma(const void* q, const void* k, const void* v, void* o, int B,
       (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
       (const __nv_bfloat16*)v, (__nv_bfloat16*)o, S, Hq, Hkv, causal, window,
       scale * 1.4426950408889634f);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// float32: tensor-core kernel, 3xTF32 (mma.sync m16n8k8 tf32, cp.async)
+// ---------------------------------------------------------------------------
+
+// The tiles by head dim: WARPS warps of 16 query rows a block, BK keys a
+// K/V tile.  Up to D = 128, 4 warps and 32 keys, and two or more blocks
+// share an SM; at D = 256 the 16 x 256 accumulator takes ~240 registers, so
+// an SM holds one block, and 8 warps with 16-key tiles (the shared memory
+// of 128 rows of Q) give each scheduler two warps (on an H100 at the
+// path's shape 4 warps of 32 keys took 2.81 ms, 8 of 16 2.66 ms; PERF.md).
+template <int D>
+struct F32Tile {
+  static constexpr int WARPS = D == 256 ? 8 : 4;
+  static constexpr int BQ = 16 * WARPS;  // query rows per block
+  static constexpr int BK = D == 256 ? 16 : 32;
+  // rows padded so that the fragment reads (16 bytes a lane) are free of
+  // bank conflicts: Q and K rows by 16 floats (the eight lanes of a phase
+  // read rows g, g + 1 at d 4 t: chunks 4 g + t mod 8), V rows by 4 (rows
+  // 2 t, 2 t + 1 at d 4 g: chunks 2 t + g mod 8)
+  static constexpr int QS = D + 16;  // Q and K row stride, floats
+  static constexpr int VS = D + 4;   // V row stride
+  static constexpr int K_FLOATS = BK * QS;
+  static constexpr int STAGE = K_FLOATS + BK * VS;  // a K and a V tile
+  static constexpr size_t BYTES =
+      ((size_t)BQ * QS + 2 * (size_t)STAGE) * sizeof(float);
+};
+
+// x rounded to tf32 (10 mantissa bits), to nearest, ties away from zero:
+// half a tf32 ulp added to the bits, the 13 low bits cleared.  For finite
+// x this is cvt.rna.tf32.f32, which ptxas expands to 4-5 instructions (its
+// NaN and overflow handling) where this takes 2: the kernel at D = 256
+// went from 9,256 to 7,288 instructions, 4.18 to 2.81 ms on an H100
+// (PERF.md).
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// x = hi + lo + r, hi and lo tf32, |r| <= 2^-22 |x|
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));
+}
+
+// c += a (16 x 8, row-major) * b (8 x 8, column-major), tf32 -> float32
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+template <int D>
+__global__ void __launch_bounds__(F32Tile<D>::WARPS * 32, 1)
+    flash_tf32x3_kernel(
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, float* __restrict__ o, int S, int Hq,
+    int Hkv, int causal, int window, float scale_log2) {
+  using T = F32Tile<D>;
+  constexpr int NT = T::WARPS * 32;
+  constexpr int BQ = T::BQ;
+  constexpr int BK = T::BK;
+  constexpr int NJ = BK / 8;  // key groups (8 keys) a tile
+  constexpr int CPR = D / 4;  // 16-byte chunks per row
+  extern __shared__ __align__(16) float smem_f[];
+  float* sq = smem_f;
+  float* skv = sq + BQ * T::QS;  // stage s: K at s * STAGE, V after it
+
+  const int h = blockIdx.x % Hq;
+  const int b = blockIdx.x / Hq;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // heaviest tiles first
+  const int hk = h / (Hq / Hkv);
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+
+  const size_t q_row = (size_t)Hq * D;
+  const size_t kv_row = (size_t)Hkv * D;
+  const float* qb = q + (size_t)b * S * q_row + (size_t)h * D;
+  const float* kb = k + (size_t)b * S * kv_row + (size_t)hk * D;
+  const float* vb = v + (size_t)b * S * kv_row + (size_t)hk * D;
+  float* ob = o + (size_t)b * S * q_row + (size_t)h * D;
+
+  // keys [kv_begin, kv_end) can be live for some row of this block
+  const int q_last = min(q0 + BQ, S) - 1;
+  const int kv_end = causal ? q_last + 1 : S;
+  const int kv_begin = window > 0 ? max(0, q0 - window + 1) : 0;
+  const int t_begin = kv_begin / BK;
+  const int t_end = (kv_end + BK - 1) / BK;
+
+  // copies: each thread takes chunk lc of rows lr, lr + RPP, ...; rows past
+  // S read row S - 1 with a source size of 0, which writes zeros
+  constexpr int RPP = NT / CPR;  // rows per pass
+  static_assert(NT % CPR == 0 && BK % RPP == 0 && BQ % RPP == 0, "tiling");
+  const int lr = tid / CPR, lc = tid % CPR;
+  const uint32_t sq_u = smem_addr(sq);
+  const uint32_t skv_u = smem_addr(skv);
+#pragma unroll
+  for (int p = 0; p < BQ / RPP; ++p) {
+    const int r = lr + p * RPP;
+    cp_async16(sq_u + (r * T::QS + lc * 4) * 4,
+               qb + (size_t)min(q0 + r, S - 1) * q_row + lc * 4, q0 + r < S);
+  }
+  auto load_kv = [&](int t, int stage) {
+    const int k0 = t * BK;
+    const uint32_t sk_u = skv_u + stage * T::STAGE * 4;
+    const uint32_t sv_u = sk_u + T::K_FLOATS * 4;
+#pragma unroll
+    for (int p = 0; p < BK / RPP; ++p) {
+      const int r = lr + p * RPP;
+      const size_t off = (size_t)min(k0 + r, S - 1) * kv_row + lc * 4;
+      cp_async16(sk_u + (r * T::QS + lc * 4) * 4, kb + off, k0 + r < S);
+      cp_async16(sv_u + (r * T::VS + lc * 4) * 4, vb + off, k0 + r < S);
+    }
+  };
+  load_kv(t_begin, 0);
+  cp_async_commit();
+
+  // this warp's rows [qw, qw + 16); the thread holds rows g and g + 8
+  const int qw = q0 + warp * 16;
+  const int g = lane / 4;
+  const int t4 = lane % 4;
+  float acc[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  float m0 = kMasked, m1 = kMasked, l0 = 0.f, l1 = 0.f;
+
+  // Fragment orders.  Q K^T sums over d in any order shared by Q and K: the
+  // two k-steps of d block c (16 wide) take d 16 c + 4 t4 + (0, 1) as k (t4,
+  // t4 + 4) and + (2, 3) as the next step's, so one 16-byte read of a Q or
+  // K row feeds both.  P V sums over keys in any order shared by P and V:
+  // key group j is a k-step with k t4 <-> key 8 j + 2 t4 and k t4 + 4 <->
+  // key 8 j + 2 t4 + 1, which is where S's accumulator holds them, so P's A
+  // fragment is the accumulator (c0, c2, c1, c3) with no shuffle.  Output
+  // column n of d tile 4 a + i is d 32 a + 4 n + i, so a lane reads V at d
+  // 32 a + 4 g (16 bytes for four tiles) and holds O at 32 a + 8 t4 + (0..7).
+  const float* qf = sq + (warp * 16 + g) * T::QS + 4 * t4;
+  const int kf_off = g * T::QS + 4 * t4;
+  const int vf_off = 2 * t4 * T::VS + 4 * g;
+
+  for (int t = t_begin; t < t_end; ++t) {
+    const int stage = (t - t_begin) & 1;
+    cp_async_wait_all();
+    __syncthreads();  // tile t landed; every warp is done with tile t - 1
+    if (t + 1 < t_end) {
+      load_kv(t + 1, stage ^ 1);
+      cp_async_commit();
+    }
+    const int k0 = t * BK;
+    // skip a tile wholly masked for this warp's rows (exact: its weights
+    // would be 0, or 1 and then wiped by alpha = 0)
+    if (qw >= S || (causal && k0 > qw + 15) ||
+        (window > 0 && qw - (k0 + BK - 1) >= window))
+      continue;
+    const float* sk = skv + stage * T::STAGE;
+    const float* sv = sk + T::K_FLOATS;
+
+    // S = Q K^T: 16 rows x BK keys, NJ 16 x 8 tiles; hi*hi into sb,
+    // hi*lo + lo*hi into ss (lo*lo, below 2^-22 of the product, dropped)
+    float sb[NJ][4], ss[NJ][4];
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sb[j][e] = ss[j][e] = 0.f;
+#pragma unroll
+    for (int c = 0; c < D / 16; ++c) {
+      const float4 x0 = *reinterpret_cast<const float4*>(qf + 16 * c);
+      const float4 x1 =
+          *reinterpret_cast<const float4*>(qf + 8 * T::QS + 16 * c);
+      uint32_t ah[2][4], al[2][4];
+      split_tf32(x0.x, ah[0][0], al[0][0]);
+      split_tf32(x1.x, ah[0][1], al[0][1]);
+      split_tf32(x0.y, ah[0][2], al[0][2]);
+      split_tf32(x1.y, ah[0][3], al[0][3]);
+      split_tf32(x0.z, ah[1][0], al[1][0]);
+      split_tf32(x1.z, ah[1][1], al[1][1]);
+      split_tf32(x0.w, ah[1][2], al[1][2]);
+      split_tf32(x1.w, ah[1][3], al[1][3]);
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const float4 y = *reinterpret_cast<const float4*>(
+            sk + kf_off + 8 * j * T::QS + 16 * c);
+        uint32_t bh[4], bl[4];
+        split_tf32(y.x, bh[0], bl[0]);
+        split_tf32(y.y, bh[1], bl[1]);
+        split_tf32(y.z, bh[2], bl[2]);
+        split_tf32(y.w, bh[3], bl[3]);
+        mma_tf32(ss[j], al[0], bh[0], bh[1]);
+        mma_tf32(ss[j], ah[0], bl[0], bl[1]);
+        mma_tf32(sb[j], ah[0], bh[0], bh[1]);
+        mma_tf32(ss[j], al[1], bh[2], bh[3]);
+        mma_tf32(ss[j], ah[1], bl[2], bl[3]);
+        mma_tf32(sb[j], ah[1], bh[2], bh[3]);
+      }
+    }
+    float s[NJ][4];
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        s[j][e] = (sb[j][e] + ss[j][e]) * scale_log2;
+    if ((causal && k0 + BK - 1 > qw) ||
+        (window > 0 && qw + 15 - k0 >= window) || k0 + BK > S) {
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qr = qw + g + (e >= 2 ? 8 : 0);
+          const int kr = k0 + 8 * j + 2 * t4 + (e & 1);
+          if (kr >= S)
+            s[j][e] = -INFINITY;  // past the sequence: never weighted
+          else if ((causal && kr > qr) || (window > 0 && qr - kr >= window))
+            s[j][e] = kMasked;
+        }
+    }
+
+    // online softmax, rows g (e = 0, 1) and g + 8 (e = 2, 3), base 2
+    float mx0 = m0, mx1 = m1;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
+      mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
+    }
+    mx0 = fmaxf(mx0, __shfl_xor_sync(kFull, mx0, 1));
+    mx0 = fmaxf(mx0, __shfl_xor_sync(kFull, mx0, 2));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(kFull, mx1, 1));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(kFull, mx1, 2));
+    const float al0 = exp2f(m0 - mx0);
+    const float al1 = exp2f(m1 - mx1);
+    m0 = mx0;
+    m1 = mx1;
+    float rs0 = 0.f, rs1 = 0.f;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      s[j][0] = exp2f(s[j][0] - mx0);
+      s[j][1] = exp2f(s[j][1] - mx0);
+      s[j][2] = exp2f(s[j][2] - mx1);
+      s[j][3] = exp2f(s[j][3] - mx1);
+      rs0 += s[j][0] + s[j][1];
+      rs1 += s[j][2] + s[j][3];
+    }
+    l0 = l0 * al0 + rs0;
+    l1 = l1 * al1 + rs1;
+    // rescale only when some row's max moved (alpha = 1 changes nothing)
+    if (__any_sync(kFull, al0 != 1.f || al1 != 1.f)) {
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n) {
+        acc[n][0] *= al0;
+        acc[n][1] *= al0;
+        acc[n][2] *= al1;
+        acc[n][3] *= al1;
+      }
+    }
+
+    // O += P V: 16 rows x D, D / 8 accumulators of 16 x 8; P split in
+    // registers, the three products small ones first
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      uint32_t ph[4], pl[4];
+      split_tf32(s[j][0], ph[0], pl[0]);
+      split_tf32(s[j][2], ph[1], pl[1]);
+      split_tf32(s[j][1], ph[2], pl[2]);
+      split_tf32(s[j][3], ph[3], pl[3]);
+      const float* vr = sv + vf_off + 8 * j * T::VS;
+#pragma unroll
+      for (int a = 0; a < D / 32; ++a) {
+        const float4 v0 = *reinterpret_cast<const float4*>(vr + 32 * a);
+        const float4 v1 =
+            *reinterpret_cast<const float4*>(vr + T::VS + 32 * a);
+        const float w0[4] = {v0.x, v0.y, v0.z, v0.w};
+        const float w1[4] = {v1.x, v1.y, v1.z, v1.w};
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          uint32_t bh0, bl0, bh1, bl1;
+          split_tf32(w0[i], bh0, bl0);
+          split_tf32(w1[i], bh1, bl1);
+          mma_tf32(acc[4 * a + i], pl, bh0, bh1);
+          mma_tf32(acc[4 * a + i], ph, bl0, bl1);
+          mma_tf32(acc[4 * a + i], ph, bh0, bh1);
+        }
+      }
+    }
+  }
+  cp_async_wait_all();
+  if (qw >= S) return;
+
+  l0 += __shfl_xor_sync(kFull, l0, 1);
+  l0 += __shfl_xor_sync(kFull, l0, 2);
+  l1 += __shfl_xor_sync(kFull, l1, 1);
+  l1 += __shfl_xor_sync(kFull, l1, 2);
+  if (l0 == 0.f) l0 = 1.f;
+  if (l1 == 0.f) l1 = 1.f;
+  // the lane holds d 32 a + 8 t4 + (0..7) of rows g and g + 8: two 16-byte
+  // stores each, a quad's 128 bytes contiguous; rows >= S are not written
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int qr = qw + g + 8 * half;
+    if (qr >= S) continue;
+    const float l = half ? l1 : l0;
+    float* orow = ob + (size_t)qr * q_row + 8 * t4;
+#pragma unroll
+    for (int a = 0; a < D / 32; ++a) {
+      const int e = 2 * half;
+      *reinterpret_cast<float4*>(orow + 32 * a) =
+          make_float4(acc[4 * a][e] / l, acc[4 * a + 1][e] / l,
+                      acc[4 * a + 2][e] / l, acc[4 * a + 3][e] / l);
+      *reinterpret_cast<float4*>(orow + 32 * a + 4) = make_float4(
+          acc[4 * a][e + 1] / l, acc[4 * a + 1][e + 1] / l,
+          acc[4 * a + 2][e + 1] / l, acc[4 * a + 3][e + 1] / l);
+    }
+  }
+}
+
+template <int D>
+int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
+               int S, int Hq, int Hkv, int causal, int window, float scale,
+               void* stream) {
+  using T = F32Tile<D>;
+  cudaError_t e = cudaFuncSetAttribute(
+      flash_tf32x3_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)T::BYTES);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid(B * Hq, (S + T::BQ - 1) / T::BQ);
+  flash_tf32x3_kernel<D><<<grid, T::WARPS * 32, T::BYTES,
+                           (cudaStream_t)stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, (float*)o, S, Hq,
+      Hkv, causal, window, scale * 1.4426950408889634f);
   return (int)cudaGetLastError();
 }
 

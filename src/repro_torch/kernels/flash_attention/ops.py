@@ -6,10 +6,13 @@
 For CUDA tensors it launches ``csrc/flash_attention.cu``, which reads KV
 head h // (Hq/Hkv) for Q head h (no repeated KV copy), by one of two routes:
 bfloat16 takes the tensor-core kernel (``mma.sync``, P rounded to bf16;
-``ref.mha_tiled`` is its tile-wise plain version), float32 the FMA kernel
-(exact in float32).  For tensors on the CPU it runs the plain version,
-``ref.mha_ref``.  A failed build or launch raises.  The shape contract is
-the reference's (``flash_attention`` asserts ``S % min(128, S) == 0``).
+``ref.mha_tiled`` is its tile-wise plain version), float32 the tensor-core
+kernel in 3xTF32 (each product hi·hi + hi·lo + lo·hi of TF32 parts;
+``ref.mha_tf32x3`` is its tile-wise plain version; within
+``cases.f64_bound`` of float64).  For tensors on the CPU it runs the plain
+version, ``ref.mha_ref``.  A failed build or launch raises.  The shape
+contract is the reference's (``flash_attention`` asserts ``S % min(128, S)
+== 0``).
 ``launches`` counts kernel launches: the total under ``"flash_attention"``
 and each route under its own key (``ROUTES``); ``"plain_on_cuda"`` counts
 calls of the plain version with a CUDA tensor (the comparisons in
@@ -28,7 +31,7 @@ import torch
 
 from repro_torch.kernels import build as _build
 from repro_torch.kernels.flash_attention.ref import (
-    attention_ref, band_mask, mha_ref, mha_tiled,
+    attention_ref, band_mask, mha_ref, mha_tf32x3, mha_tiled, tf32_rna,
 )
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
@@ -132,5 +135,5 @@ def mha_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 __all__ = [
     "HEAD_DIMS", "KERNELS", "ROUTES", "attention_ref",
     "band_mask", "build", "launches", "mha_flash", "mha_flash_plain",
-    "mha_ref", "mha_tiled", "reset_launches",
+    "mha_ref", "mha_tf32x3", "mha_tiled", "reset_launches", "tf32_rna",
 ]

@@ -49,7 +49,9 @@
   causal without window, non-causal, S in {64, 100, 128}, every head dim,
   Hq/Hkv in {1, 2, 10}, float32 (max|Δ| <= 2e-4·max|ref|) and bfloat16
   (max|Δ| <= 2e-2 on unit-normal inputs, the reference's own limit); the
-  route counter that moved (mma for bf16, FMA for float32); in bf16 also
+  route counter that moved (mma for bf16, 3xTF32 for float32); in float32
+  also against ``mha_ref`` in float64 (``cases.F64_REL`` of max|ref|,
+  ``cases.f64_gap``); in bf16 also
   per element against the route's tile-wise plain version ``mha_tiled``
   (the same roundings of P): |kernel - tiled| <= 2^-8·|tiled| +
   ``cases.TILED_ABS``, half an output ulp plus the float32 summation
@@ -635,6 +637,11 @@ def test_flash_attention_matches_plain_on_card(cuda_device, shape, dtype):
     assert err <= tol, (shape, dtype, err)
     route = flash_ops.ROUTES[dtype][0]
     assert moved == {"flash_attention": 1, route: 1}, moved
+    if dtype == torch.float32:       # 3xTF32 against float64
+        ref64 = flash_ops.mha_ref(*(t.double() for t in case.inputs),
+                                  causal=shape[5], window=shape[6])
+        gap = flash_cases.f64_gap(got, ref64)
+        assert gap <= flash_cases.F64_REL, (shape, gap)
     if dtype == torch.bfloat16:
         q, k, v = case.inputs
         tiled = flash_ops.mha_tiled(q, k, v, causal=shape[5],

@@ -1,7 +1,9 @@
 """Time one hand-written kernel with the port package of a given checkout —
 to compare two checkouts on one card.
 
-    python3 tools/kernel_time.py [--src DIR] [--case flash]
+    python3 tools/kernel_time.py [--src DIR] [--case flash] \
+        [--dtype float32|bfloat16]
+    python3 tools/kernel_time.py [--src DIR] --case truncate [--shape [B,]n]
     python3 tools/kernel_time.py [--src DIR] --case wy_vta \
         [--shape M,N,B[,PAD]] ...
     python3 tools/kernel_time.py [--src DIR] --case panel [--shape [B,]M,b]
@@ -14,12 +16,24 @@ whose kernels are built; default: this checkout's).  Each case prints one
 JSON line per shape with the CUDA-event median of 30 calls after 3 warm-up
 calls (``tools/cuda_timing.time_ms``) and the card's name:
 
-* ``flash``: the flash kernel's bf16 route at the hybrid prefill's shape
+* ``flash``: the flash kernel's route of ``--dtype`` (both routes when it
+  is not given) at the hybrid prefill's shape
   ``kernels/flash_attention/cases.PATH_SHAPE`` (B 2, S 4,096, 10 Q heads,
-  1 KV head, D 256, window 2,048), unit-normal bf16 inputs from seed 4;
-  max|Δ| against ``mha_ref`` in float32 on the same inputs, and ptxas's
-  [registers, spill store bytes, spill load bytes] of the route's kernel
-  per head dim, from the build log.
+  1 KV head, D 256, window 2,048), unit-normal inputs from seed 4; beside
+  it one ``scaled_dot_product_attention`` call on the same inputs (the
+  library yardstick), each with the graph-replay time of a CUDA graph of
+  calls (``cuda_timing.graph_ms``: the card's time with no host); max|Δ|
+  against ``mha_ref`` in float32 and in float64 on the same inputs, and
+  ptxas's [registers, spill store bytes, spill load bytes] of the route's
+  kernel per head dim, from the build log.
+* ``truncate``: the δ-truncation through ``delta_truncate`` (or
+  ``_batched`` with a leading B) on the case of
+  ``kernels/engine_cases.engine_case`` (sorted uniform σ, δ a device tensor
+  inside the tail norms' range, per row), seed 2; the graph-replay time
+  beside the event median, the plain version's event median, the device
+  nodes one call enqueues (``cuda_timing.graph_node_types``: 0 = kernel),
+  whether the ranks equal the plain version's, and ptxas's report.
+  Default shapes: n = 2,816 and 9 x 64 (the kernel table's).
 * ``wy_vta``: pass 1 of the WY update, Y = Vᵀ A, through ``wy_vta``, with
   V (M, B) and A the (M, N) trailing block at column PAD (default 0) of a
   contiguous (M, N + PAD) matrix, unit-normal inputs from seed 2 made here
@@ -77,6 +91,7 @@ TOOLS = os.path.dirname(os.path.abspath(__file__))
 WY_SHAPES = ["19447808,32,32,0", "24576,2784,32,32"]
 PANEL_SHAPES = ["19447808,32", "24576,32"]
 SORT_SHAPES = ["2816", "9,64"]
+TRUNCATE_SHAPES = ["2816", "9,64"]
 # stored chains: (split, [first core (r_s, n1, r1), tail cores], experts)
 CHAIN_SHAPES = {
     "qwen-wq": (1, [(24, 1024, 417), (417, 16, 18), (18, 64, 1)], 0),
@@ -102,20 +117,62 @@ CHAIN_CASES = ["qwen-wq,bf16,4", "olmoe-gate,bf16,1", "olmoe-gate,int8,1",
                "rg-wo,bf16,8192", "rg-wk,bf16,8192"]
 
 
-def flash(build, torch, time_ms, src):
+def flash(build, torch, time_ms, src, dtypes):
+    from cuda_timing import graph_ms
     from repro_torch.kernels.flash_attention import cases, ops
-    gen = torch.Generator(device="cuda").manual_seed(4)
-    case = cases.flash_case(cases.PATH_SHAPE, torch.bfloat16, gen, "cuda")
-    ms = time_ms(case.kernel)
     _, _, _, _, _, causal, window = cases.PATH_SHAPE
-    ref = ops.mha_ref(*(t.float() for t in case.inputs), causal=causal,
-                      window=window)
-    err = float((case.kernel().float() - ref).abs().max())
-    ptxas = {fn: use for fn, use in build.ptxas_usage(ops.SOURCE).items()
-             if "flash_mma_kernel" in fn}
-    print(json.dumps({"src": src, "case": "flash", "ms": ms,
-                      "max_abs_err_vs_f32": err, "ptxas": ptxas,
-                      "device": torch.cuda.get_device_name(0)}))
+    for name in dtypes:
+        dtype = getattr(torch, name)
+        gen = torch.Generator(device="cuda").manual_seed(4)
+        case = cases.flash_case(cases.PATH_SHAPE, dtype, gen, "cuda")
+        reps = 30 if dtype == torch.bfloat16 else 10
+        got = case.kernel().float()
+        errs = {}
+        for wide in (torch.float32, torch.float64):
+            ref = ops.mha_ref(*(t.to(wide) for t in case.inputs),
+                              causal=causal, window=window)
+            errs[str(wide)[6:]] = float((got.to(wide) - ref).abs().max())
+            del ref
+        route = ("flash_mma_kernel" if dtype == torch.bfloat16 else None)
+        ptxas = {fn: use for fn, use in build.ptxas_usage(ops.SOURCE).items()
+                 if (route in fn if route else "flash_mma_kernel" not in fn)}
+        print(json.dumps({"src": src, "case": "flash", "dtype": name,
+                          "ms": time_ms(case.kernel, reps),
+                          "graph_ms": graph_ms(case.kernel, 5, 5),
+                          "library_ms": time_ms(case.library, reps),
+                          "library_graph_ms": graph_ms(case.library, 5, 5),
+                          "max_abs_err_vs": errs,
+                          "ref_max": float(got.abs().max()),
+                          "ptxas": ptxas,
+                          "device": torch.cuda.get_device_name(0)}),
+              flush=True)
+        del case, got
+        torch.cuda.empty_cache()
+
+
+def truncate(build, torch, time_ms, src, shapes):
+    from cuda_timing import graph_ms, graph_node_types
+    from repro_torch.kernels import engine_cases as ec
+    from repro_torch.kernels.frob_truncate import ops
+    for spec in shapes:
+        batch, n = _shape(spec)
+        kind = "truncate_batched" if batch else "truncate"
+        gen = torch.Generator(device="cuda").manual_seed(2)
+        case = ec.engine_case(kind, (*batch, n), gen, "cuda")
+        got, ref = case.kernel(), case.plain()
+        nodes, code = graph_node_types(case.kernel)
+        print(json.dumps({"src": src, "case": "truncate",
+                          "shape": [*batch, n],
+                          "ms": time_ms(case.kernel),
+                          "graph_ms": graph_ms(case.kernel),
+                          "plain_ms": time_ms(case.plain),
+                          "graph_nodes": nodes if code == 0 else code,
+                          "ranks_equal": bool(torch.equal(got[1], ref[1])),
+                          "max_abs_err_tails": float(
+                              (got[0] - ref[0]).abs().max()),
+                          "ptxas": _ptxas(build, ops.SOURCE, "truncate"),
+                          "device": torch.cuda.get_device_name(0)}),
+              flush=True)
 
 
 def wy_vta(build, torch, time_ms, device_ms, src, shapes):
@@ -333,10 +390,12 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--src", default=os.path.join(TOOLS, "..", "src"))
     ap.add_argument("--case", choices=("flash", "wy_vta", "panel", "sort",
-                                       "chain"), default="flash")
+                                       "chain", "truncate"), default="flash")
     ap.add_argument("--shape", action="append",
-                    help="wy_vta: M,N,B[,PAD]; panel: [B,]M,b; sort: "
-                         "[B,]n; chain: NAME,DTYPE,B (repeatable)")
+                    help="wy_vta: M,N,B[,PAD]; panel: [B,]M,b; sort, "
+                         "truncate: [B,]n; chain: NAME,DTYPE,B (repeatable)")
+    ap.add_argument("--dtype", choices=("float32", "bfloat16"),
+                    help="flash: the route (default: both)")
     args = ap.parse_args()
     sys.path.insert(0, os.path.abspath(args.src))
     sys.path.insert(0, TOOLS)
@@ -349,7 +408,11 @@ def main() -> None:
         sys.exit("kernel_time: no CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
     if args.case == "flash":
-        flash(build, torch, time_ms, args.src)
+        flash(build, torch, time_ms, args.src,
+              [args.dtype] if args.dtype else ["bfloat16", "float32"])
+    elif args.case == "truncate":
+        truncate(build, torch, time_ms, args.src,
+                 args.shape or TRUNCATE_SHAPES)
     elif args.case == "wy_vta":
         wy_vta(build, torch, time_ms, device_ms, args.src,
                args.shape or WY_SHAPES)
