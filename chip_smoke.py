@@ -9,8 +9,11 @@
 2. Main path: ``repro_torch.launch.serve.serve`` on full-width
    qwen1.5-0.5b (24 layers, d_model 1024, 16x64 heads, d_ff 2816, vocab
    151,936), random weights from a seed, 4 requests, prompt 16, gen 16,
-   greedy, eps 0.2 — once with ``--weights tt`` and once with
-   ``--weights tt-int8``.  Compression runs on the card.  The launch
+   greedy, eps 0.2 — once with ``--weights tt``, which compresses on the
+   card (its phases timed: the unblocked policy's breakdown) and saves
+   the payload with ``--save-tt-checkpoint``, and once with ``--weights
+   tt-int8``, which serves from that checkpoint (``--tt-checkpoint``) and
+   compresses nothing (gated: no engine kernel launched).  The launch
    counters are zeroed just before each run and read just after: every
    TT chain must have run on a hand-written kernel (no plain-path chain).
    Gates, both in float32 activations so that two runs differ only by
@@ -44,17 +47,19 @@
 4. TTD-engine phase (the paper's engine: panel factor, WY update, sort,
    truncation; ``kernels/{householder,block_update,singular_sort,
    frob_truncate}``):
-   a. full-width qwen1.5-0.5b, the main path's weights, compressed with
-      the TT-Edge policy (``hbd_impl="blocked"``) on the batched plan,
-      under ``torch.profiler`` (device time by kernel, each engine
-      kernel's and WY pass 1's share, the panel factor's split by route):
+   a. full-width qwen1.5-0.5b, the main path's weights, compressed once
+      with the TT-Edge policy (``hbd_impl="blocked"``) on the batched plan,
+      under ``torch.profiler`` and the phase timers (device time by
+      kernel, each engine kernel's and WY pass 1's share, the panel
+      factor's split by route; full-width qwen is compressed twice in all):
       plan, seconds, ranks beside the main path's (each within one), every
       TT leaf within ε, TT-native vs reconstruct-then-serve in float32 at
       1e-4 of scale, and the single-panel (its streamed panels on the TSQR
       route, none on the sweep), WY (pass 1 on its 16-byte copy route), sort
       and truncation kernels launched with no plain call; then where the
       time goes, for both HBD impls (host timers around each phase,
-      synchronized);
+      synchronized; the blocked one under the profiler, the unblocked one
+      the main path's);
    b. ResNet-32 (``configs/resnet32.py``, seed 0, α 1.0, eps 0.2), blocked,
       batched plan: 4 bucket passes and no serial member, every TT leaf
       within ε, ranks and payload equal to a ``plan="serial"`` run, and
@@ -84,19 +89,22 @@
       sort).
 5. Hybrid phase (``models/rglru.py``, ``kernels/flash_attention``):
    a. the main path ``serve --arch recurrentgemma-2b --weights tt`` at full
-      width and depth (26 layers, d_model 2560, 10 Q heads and 1 KV head x
-      256, d_ff 7680, vocab 256,000, window 2048), random weights from seed
+      width and ``HYBRID_LAYERS`` of its 26 layers (d_model 2560, 10 Q
+      heads and 1 KV head x 256, d_ff 7680, vocab 256,000, window 2048;
+      the (rglru, rglru, attn) pattern kept), random weights from seed
       0 with the spectral decay, eps 0.2: compression seconds, ranks,
       resident bytes, every TT leaf within eps, chain, sort and truncation
       kernels launched with no plain call;
    b. prefill through ``make_prefill_step`` at B = 2, S = 4096 with the
       same compression's dense bf16 and TT-native weights, ``impl="pallas"``
-      (flash kernel: 8 launches per prefill, one per attention layer, all
-      on the bf16 tensor-core route ``flash_attention_mma``) and
+      (flash kernel: one launch per attention layer, ``ATTN_LAYERS`` a
+      prefill, all on the bf16 tensor-core route ``flash_attention_mma``)
+      and
       ``impl="xla"`` (plain chunked attention): tokens/s, and the bf16
       differences printed.  Gates in float32 activations at F32_TOL of
       scale, every flash launch on the float32 3xTF32 tensor-core route
-      ``flash_attention_f32`` (8 per run): G1 pallas vs xla with dense
+      ``flash_attention_f32`` (``ATTN_LAYERS`` a run): G1 pallas vs xla
+      with dense
       weights (and ``make_eval_step`` at B = 1, S = 4096: losses within
       1e-5 relative); G2 TT-native prefill (flash + chain kernels) vs
       reconstruct-then-prefill (plain); G3 prefill's last logits vs decode
@@ -142,12 +150,46 @@
       the tensor-core route); times at 1 token per expert (float32 too, the
       gates' FFMA route); the attention chains at B in {1, 4}; the absorbed
       batched API's routes against their plain versions.
-7. Prints the script's total seconds, one ``{"kernels": [...]}`` JSON line
-   (the twelve other ported kernels, one entry per flash route and one per
-   batched chain route, the float32 banks' FFMA route too; the panel rows
+7. Forward and checkpoint phase (``checkpoint/checkpoint.py``, the dense
+   and MoE ``forward``/``prefill``/``loss_fn``):
+   a. the main path's checkpoint: every leaf loaded back equal bit for bit
+      to the payload in memory; ``serve --tt-checkpoint`` (no compression)
+      gives the tt run's tokens; a copy with one flipped byte raises
+      ``CheckpointCorrupt``;
+   b. qwen1.5-0.5b, the tt run's TT-native bf16 weights:
+      ``make_prefill_step`` at B = 2, S = 4096 under both impls and
+      ``make_eval_step`` at B = 1, S = 4096 (tok/s; chain kernels
+      launched, no plain-path chain, no flash launch: the reference's
+      scanned layer flag keeps both impls on the plain attention; eval
+      losses of the impls within 1e-5 relative); in float32 at F32_TOL of
+      scale, TT-native prefill against reconstruct-then-prefill, and
+      prefill's last logits against the KV cache stepped through 256
+      tokens;
+   c. olmoe-1b-7b, the MoE phase's compression: prefill at B = 1, S = 2048
+      (320 rows an expert) with the TT-native bf16 banks (tok/s; every bank
+      call one batched launch, the routes counted, no plain call); in
+      float32 each MoE call of a reconstruct-then-prefill run replayed with
+      the TT-native and the dense banks, per layer within F32_TOL of scale;
+      the banks against their plain version at 64 experts x 320 rows;
+   d. qwen3-8b at full width (d_model 4096, 32 Q heads and 8 KV heads x
+      128, qk-norm, d_ff 12,288, vocab 151,936, untied), ``BIG_LAYERS`` = 8
+      of its 36 layers (the cut: compression seconds), random weights from
+      seed 0 with the spectral decay, eps 0.2: ``serve --weights tt``,
+      compressed on the card, with the main path's gates (fused == python
+      tokens, kernels vs plain and TT-native vs reconstruct in float32,
+      every TT leaf within eps); its stored chains (as 3.) at B in {1, 4,
+      4096}; prefill at B = 1, S = 4096.
+   7a-b run after 3, 7c after 6c, 7d last.
+8. Prints each phase's seconds, the script's total, one ``{"kernels":
+   [...]}`` JSON line (the twelve other ported kernels, one entry per
+   flash route and one per batched chain route, the float32 banks' FFMA route too; the panel rows
    with their main-path route counts),
    the card line again, and as the last line ``{"ok": true, "device":
    {...}}``.
+
+Cuts of depth (every width as configured): qwen3-8b runs 8 of its 36
+layers; recurrentgemma-2b ``HYBRID_LAYERS`` of its 26.  Nothing else is
+cut.
 
 Exits non-zero without a CUDA card, and on any failed phase.
 """
@@ -158,9 +200,13 @@ import dataclasses
 import json
 import math
 import re
+import shutil
+import struct
 import subprocess
 import sys
+import tempfile
 import time
+import zipfile
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -209,6 +255,103 @@ def check(ok: bool, msg: str) -> None:
     if not ok:
         print(f"[chip_smoke] FAIL: {msg}")
         FAILURES.append(msg)
+
+
+# ---------------------------------------------------------------------------
+# Compressions in child processes
+# ---------------------------------------------------------------------------
+#
+# recurrentgemma-2b's and qwen3-8b's compressions (minutes each, bound by
+# the host's launch loop, the card mostly idle) run in child processes from
+# the start, each ``serve --weights tt --save-tt-checkpoint`` on the same
+# card; the phases that serve those models load the checkpoints
+# (``--tt-checkpoint``).  Their seconds are taken while other phases share
+# the card and the host.
+
+def start_compression(name: str, serve_args, work: str) -> dict:
+    """Start ``python3 chip_smoke.py --compress CKPT REPORT serve-args``."""
+    ckpt = str(Path(work) / name)
+    report = str(Path(work) / f"{name}.json")
+    log_path = Path(work) / f"{name}.log"
+    log = open(log_path, "w")
+    proc = subprocess.Popen(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--compress", ckpt,
+         report, *serve_args], stdout=log, stderr=subprocess.STDOUT)
+    return {"proc": proc, "ckpt": ckpt, "report": report, "log": log,
+            "log_path": log_path, "t0": time.perf_counter()}
+
+
+def finish_compression(name: str, child: dict,
+                       timeout: float = 1200.0) -> dict:
+    """Wait for a child compression; its output is printed and its report
+    (``compress_child``) returned with the checkpoint's directory."""
+    try:
+        rc = child["proc"].wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        child["proc"].kill()
+        rc = child["proc"].wait()
+    wall = time.perf_counter() - child["t0"]
+    child["log"].flush()
+    for line in child["log_path"].read_text().splitlines():
+        print(f"[{name} compression] {line[:2000]}")
+    check(rc == 0, f"{name}: the compression's process exited {rc}")
+    rep = {"ckpt": child["ckpt"], "wall_s": wall, "counts": {}}
+    if rc == 0:
+        with open(child["report"]) as f:
+            rep.update(json.load(f))
+    counts = rep["counts"]
+    for k in ("bitonic_sort_desc", "frob_truncate"):
+        check(counts.get(k, 0) > 0,
+              f"{name} compression: kernel {k} never launched")
+    check_no_plain(counts, f"{name} compression")
+    print(f"[chip_smoke] {name}: compressed in a child process in "
+          f"{rep.get('compress_s', float('nan')):.3f}s (incl. the spectral "
+          f"decay; the process ran {wall:.1f}s beside the other phases), "
+          f"peak device memory {rep.get('peak_bytes', 0):,} B; launches "
+          f"{counts}")
+    return rep
+
+
+def compress_child(ckpt: str, report: str, serve_args) -> int:
+    """The child's side: ``serve --weights tt --save-tt-checkpoint CKPT``
+    (two tokens, no verify), its compression's seconds, phases, peak device
+    memory, launch counts and ranks written to ``report`` as JSON."""
+    if not torch.cuda.is_available():
+        print("[chip_smoke] no CUDA device available", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_num_threads(1)        # no CPU math here: leave the cores
+    from repro_torch.launch import serve as serve_mod
+    args = serve_mod.parse_args(list(serve_args) + [
+        "--weights", "tt", "--save-tt-checkpoint", ckpt, "--no-verify",
+        "--gen", "2"])
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    with PhaseTimers() as timers:
+        out = serve_mod.serve(args)
+    torch.cuda.synchronize()
+    info = out["info"]
+    ex = info["exec_stats"]
+    rep = {"compress_s": info["compress_s"],
+           "breakdown": timers.breakdown(info["compress_s"]),
+           "peak_bytes": torch.cuda.max_memory_allocated(),
+           "counts": read_counts(),
+           "ranks": {k: list(v) for k, v in info["ranks"].items()},
+           "payload_ratio": info["payload_ratio"],
+           "plan": [ex.bucket_launches, ex.serial_params],
+           "dense_bytes": info["dense_bytes"], "tt_bytes": info["tt_bytes"],
+           "line": info["line"]}
+    with open(report, "w") as f:
+        json.dump(rep, f)
+    return 0
+
+
+def decayed_params(model, seed: int = 0):
+    """The weights ``serve`` compresses: random from ``seed``, given the
+    spectral decay (deterministic: a loaded checkpoint's dense weights)."""
+    from repro_torch.core.tt_linear import spectral_decay_pytree
+    return spectral_decay_pytree(model.init(seed), alpha=1.0)
 
 
 # ---------------------------------------------------------------------------
@@ -297,7 +440,7 @@ def f32_params(payload, family: str):
     return tt32, rx32
 
 
-def f32_oracle(serve_mod, out) -> float:
+def f32_oracle(serve_mod, out, what: str = "tt") -> float:
     """TT-native serving against reconstruct-then-serve with the same cores,
     everything in float32 (no bf16 rounding): the compress → convert →
     TT-apply path computes the dense model's function."""
@@ -312,9 +455,9 @@ def f32_oracle(serve_mod, out) -> float:
     d, scale, agree = common.logit_parity(torch.from_numpy(tf_tt),
                                           torch.from_numpy(tf_rx))
     check(d <= F32_TOL * scale,
-          f"tt f32: TT-native vs reconstruct max|d| {d:.3e} over "
+          f"{what} f32: TT-native vs reconstruct max|d| {d:.3e} over "
           f"{F32_TOL} * scale {scale:.3e}")
-    print(f"[chip_smoke] tt f32: TT-native vs reconstruct-then-serve "
+    print(f"[chip_smoke] {what} f32: TT-native vs reconstruct-then-serve "
           f"max|d|/scale {d / scale:.3e}, argmax agreement {agree:.2%}")
     return d / scale
 
@@ -353,14 +496,22 @@ def check_no_plain(counts: dict, what: str) -> None:
             check(False, f"{what}: {v} plain calls on the card ({k})")
 
 
-def run_main_path(ops, serve_mod, weights: str) -> dict:
-    """``serve()`` once; the launch counters cover exactly this run."""
-    args = serve_mod.parse_args(SERVE_ARGS + ["--weights", weights])
+def run_main_path(ops, serve_mod, weights: str, ckpt_dir: str) -> dict:
+    """``serve()`` once; the launch counters cover exactly this run.  The
+    tt run compresses (the phases timed: the unblocked policy's breakdown)
+    and saves its payload to ``ckpt_dir`` (``--save-tt-checkpoint``); the
+    tt-int8 run serves from that checkpoint (``--tt-checkpoint``) and
+    compresses nothing."""
+    tt = weights == "tt"
+    args = serve_mod.parse_args(
+        SERVE_ARGS + ["--weights", weights]
+        + ["--save-tt-checkpoint" if tt else "--tt-checkpoint", ckpt_dir])
     reset_counts()
-    t0 = time.perf_counter()
-    out = serve_mod.serve(args)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    with PhaseTimers() as timers:
+        t0 = time.perf_counter()
+        out = serve_mod.serve(args)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     counts = read_counts()
     reset_counts()
     info, ver = out["info"], out["verify"]
@@ -371,25 +522,35 @@ def run_main_path(ops, serve_mod, weights: str) -> dict:
           f"{weights}: non-finite logits")
     check(counts.get("plain_chains", 0) == 0,
           f"{weights}: {counts.get('plain_chains')} chains took the plain path")
-    want = (("tt_contract_2", "tt_contract_3") if weights == "tt"
+    want = (("tt_contract_2", "tt_contract_3") if tt
             else ("tt_contract_2q", "tt_contract_3q"))
-    # compression on the batched plan: every full-width bucket is serial,
-    # so each TT-SVD step sorts and truncates on the engine kernels
-    want += ("bitonic_sort_desc", "frob_truncate")
+    if tt:
+        # compression on the batched plan: every full-width bucket is
+        # serial, so each TT-SVD step sorts and truncates on the engine
+        # kernels
+        want += ("bitonic_sort_desc", "frob_truncate")
+        ex = info["exec_stats"]
+        print(f"[chip_smoke] main path tt: compression plan "
+              f"{ex.bucket_launches} bucket passes, {ex.serial_params} "
+              f"serial params, fingerprint {info['plan_fingerprint'][:16]}")
+    else:
+        engine = [k for k in ("bitonic_sort_desc", "frob_truncate",
+                              "panel_factor", "wy_vta") if counts.get(k)]
+        check(info["compress_s"] is None and not engine,
+              f"{weights}: served from the checkpoint but compressed "
+              f"({engine} launched)")
     for k in want:
         check(counts.get(k, 0) > 0,
               f"{weights}: kernel {k} never launched on the main path")
     check_no_plain(counts, weights)
-    ex = info["exec_stats"]
-    print(f"[chip_smoke] main path {weights}: compression plan "
-          f"{ex.bucket_launches} bucket passes, {ex.serial_params} serial "
-          f"params, fingerprint {info['plan_fingerprint'][:16]}")
     # decode steps that ran TT kernels: fused prefill + decode (16 + 15),
     # plus the int8 verify's teacher-forced pass over the prompt (15)
-    steps = 31 + (15 if weights != "tt" else 0)
+    steps = 31 + (0 if tt else 15)
+    setup = (f"compress {info['compress_s']:.3f}s" if tt else
+             f"loaded from the checkpoint in {info['load_s']:.3f}s")
     print(f"[chip_smoke] main path {weights}: launches {counts} over {steps} "
-          f"TT decode steps; compress {info['compress_s']:.3f}s; "
-          f"decode {out['tok_per_s']:.2f} tok/s; wall {wall:.1f}s")
+          f"TT decode steps; {setup}; decode {out['tok_per_s']:.2f} tok/s; "
+          f"wall {wall:.1f}s")
     # the reference's own verify gates, bf16 at full width: reported; on
     # identical full-width cores the JAX reference misses them itself
     # (tools/tt_parity_depth.py, PERF.md)
@@ -399,17 +560,29 @@ def run_main_path(ops, serve_mod, weights: str) -> dict:
              if "tie_agree" in ver else ""))
     res = {"counts": counts, "steps": steps, "info": info, "verify": ver,
            "tok_per_s": out["tok_per_s"], "run": out["run"],
-           "prompts": out["prompts"]}
+           "prompts": out["prompts"], "wall_s": wall}
     res["kernels_vs_plain"] = kernels_vs_plain(serve_mod, out, weights)
-    if weights == "tt":
+    if tt:
+        res["breakdown"] = timers.breakdown(info["compress_s"])
+        print(f"[chip_smoke] main path tt compression (unblocked policy), "
+              f"where the time goes {json.dumps(res['breakdown'])}")
         res["decode_profile"] = decode_profile(out, "qwen1.5-0.5b tt")
         res["f32_oracle"] = f32_oracle(serve_mod, out)
-        py = serve_mod.engine_mod.generate(
-            out["model"], out["params"], out["prompts"], 16, driver="python")
-        same = np.array_equal(py["gen"], gen)
-        check(same, "tt: fused and python drivers disagree on the card")
-        print(f"[chip_smoke] tt: fused == python driver tokens: {same}")
+        res["drivers_agree"] = drivers_agree(serve_mod, out, "tt")
+        res["out"] = out
     return res
+
+
+def drivers_agree(serve_mod, out, what: str) -> bool:
+    """The fused driver's tokens (``serve``) against the python driver's on
+    the same params."""
+    py = serve_mod.engine_mod.generate(
+        out["model"], out["params"], out["prompts"],
+        out["generated"].shape[1], driver="python")
+    same = np.array_equal(py["gen"], out["generated"])
+    check(same, f"{what}: fused and python drivers disagree on the card")
+    print(f"[chip_smoke] {what}: fused == python driver tokens: {same}")
+    return same
 
 
 # ---------------------------------------------------------------------------
@@ -780,7 +953,8 @@ def engine_fullwidth(serve_mod, main_tt: dict) -> dict:
     from torch.profiler import ProfilerActivity, profile
     reset_counts()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        payload, report, secs, _ = compress_timed(params, policy)
+        payload, report, secs, blocked_br = compress_timed(params, policy,
+                                                           timers=True)
     counts = read_counts()
     reset_counts()
     t0 = time.perf_counter()
@@ -829,13 +1003,14 @@ def engine_fullwidth(serve_mod, main_tt: dict) -> dict:
     print(f"[chip_smoke] engine, full width: launches {counts}")
 
     wq = dict(tree.leaves_with_paths(params))["layers.attn.wq"]
-    times = {}
-    for impl in ("unblocked", "blocked"):
-        pol = dataclasses.replace(policy, hbd_impl=impl)
-        _, _, _, br = compress_timed(params, pol, timers=True)
-        times[impl] = br
+    # one compression of each policy: the main path's (unblocked, its own
+    # phase timers) and this one (blocked, timed under the profiler)
+    times = {"unblocked": main_tt["breakdown"], "blocked": blocked_br}
+    for impl, br in times.items():
         print(f"[chip_smoke] engine, full width, {impl}: where the time "
-              f"goes {json.dumps(br)}")
+              f"goes {json.dumps(br)}"
+              + (" (under the profiler)" if impl == "blocked" else
+                 " (the main path's compression)"))
     return {"secs": secs, "decay_s": decay_s, "ranks": ranks,
             "counts": counts, "eps_worst": eps_worst, "f32_oracle": oracle,
             "plan": plan.describe(), "breakdown": times, "profile": dprof,
@@ -1122,13 +1297,18 @@ def blocked_svd_check(wq: torch.Tensor) -> float:
 # ---------------------------------------------------------------------------
 
 HYBRID_ARCH = "recurrentgemma-2b"
-HYBRID_SERVE_ARGS = ["--arch", HYBRID_ARCH, "--batch", "4", "--prompt-len",
-                     "16", "--gen", "16", "--seed", "0", "--tt-eps", "0.2"]
+# 8 of its 26 layers: 2 (rglru, rglru, attn) triples + the 2 rglru of the
+# tail (the full depth: 8 triples + 2), the cut that keeps this script
+# inside its time (PERF.md §4)
+HYBRID_LAYERS = 8
+HYBRID_SERVE_ARGS = ["--arch", HYBRID_ARCH, "--layers", str(HYBRID_LAYERS),
+                     "--batch", "4", "--prompt-len", "16", "--gen", "16",
+                     "--seed", "0", "--tt-eps", "0.2"]
 PREFILL_B, PREFILL_S = 2, 4096
 RING_S = 17 * 128    # past the 2,048 window: the decode ring buffer wraps
 BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak (700 W)
 TILED_DRAWS = 5      # extra draws (seeds 0-4) of the bf16 check vs mha_tiled
-ATTN_LAYERS = 8      # attention layers of recurrentgemma-2b: flash launches
+ATTN_LAYERS = HYBRID_LAYERS // 3   # attention layers: flash launches
 
 
 def _timed(fn):
@@ -1155,11 +1335,13 @@ def _gap(got, ref):
             float(ref.float().abs().max()))
 
 
-def hybrid_serve(serve_mod) -> dict:
-    """The main path: ``serve --weights tt`` at full width and depth; the
-    compression runs once and its params and payload serve the prefill
-    checks below."""
-    args = serve_mod.parse_args(HYBRID_SERVE_ARGS + ["--weights", "tt"])
+def hybrid_serve(serve_mod, rep: dict) -> dict:
+    """The main path: ``serve --weights tt`` at full width, served from the
+    checkpoint a child process compressed (``rep``: its report); its
+    params and payload, and the dense weights that compression took,
+    serve the prefill checks below."""
+    args = serve_mod.parse_args(HYBRID_SERVE_ARGS + [
+        "--weights", "tt", "--tt-checkpoint", rep["ckpt"]])
     out, wall, counts = _counted(lambda: serve_mod.serve(args))
     info, ver, gen = out["info"], out["verify"], out["generated"]
     vocab = out["model"].cfg.vocab_size
@@ -1169,29 +1351,36 @@ def hybrid_serve(serve_mod) -> dict:
           "hybrid: non-finite logits")
     check(counts.get("plain_chains", 0) == 0,
           f"hybrid: {counts.get('plain_chains')} chains took the plain path")
-    for k in ("tt_contract_2", "tt_contract_3", "bitonic_sort_desc",
-              "frob_truncate"):
+    for k in ("tt_contract_2", "tt_contract_3"):
         check(counts.get(k, 0) > 0,
               f"hybrid serve: kernel {k} never launched")
+    check(info["ranks"] == {k: tuple(v) for k, v in rep["ranks"].items()},
+          "hybrid: the checkpoint's ranks differ from the compression's")
     check_no_plain(counts, "hybrid serve")
-    print(f"[chip_smoke] hybrid serve (tt): compressed in "
-          f"{info['compress_s']:.3f}s (incl. the spectral decay), payload "
-          f"ratio {info['payload_ratio']:.3f}, plan "
-          f"{info['exec_stats'].bucket_launches} bucket passes, "
-          f"{info['exec_stats'].serial_params} serial params; decode "
-          f"{out['tok_per_s']:.2f} tok/s; wall {wall:.1f}s; launches {counts}")
-    print(f"[chip_smoke] hybrid ranks: " + json.dumps(
-        {k: list(v) for k, v in info["ranks"].items()}))
+    print(f"[chip_smoke] hybrid serve (tt, {HYBRID_LAYERS} layers): "
+          f"compressed in {rep['compress_s']:.3f}s (incl. the spectral "
+          f"decay, a child process), payload ratio "
+          f"{rep['payload_ratio']:.3f}, plan {rep['plan'][0]} bucket "
+          f"passes, {rep['plan'][1]} serial params; loaded in "
+          f"{info['load_s']:.3f}s; decode {out['tok_per_s']:.2f} tok/s; "
+          f"wall {wall:.1f}s; launches {counts}")
+    print(f"[chip_smoke] hybrid compression, where the time goes "
+          f"{json.dumps(rep['breakdown'])}")
+    print(f"[chip_smoke] hybrid ranks: " + json.dumps(rep["ranks"]))
     print(f"[chip_smoke] hybrid resident weight bytes: dense "
           f"{info['dense_bytes']:,} -> tt-native {info['tt_bytes']:,}")
     print(f"[chip_smoke] hybrid reference-oracle gate (reported): "
           f"max|d|/scale {ver['max_diff'] / ver['scale']:.4f} (bound 0.05)")
+    out["dense_params"] = decayed_params(out["model"])
     eps_worst = eps_gate(out["dense_params"], out["payload"],
                          "hybrid, full width")
     return {"out": out, "counts": counts, "wall_s": wall,
             "eps_worst": eps_worst,
-            "summary": {"compress_s": info["compress_s"],
-                        "payload_ratio": info["payload_ratio"],
+            "summary": {"compress_s": rep["compress_s"],
+                        "compress_peak_bytes": rep["peak_bytes"],
+                        "compress_launches": rep["counts"],
+                        "breakdown": rep["breakdown"],
+                        "payload_ratio": rep["payload_ratio"],
                         "tok_per_s": out["tok_per_s"],
                         "dense_bytes": info["dense_bytes"],
                         "tt_bytes": info["tt_bytes"],
@@ -1559,7 +1748,8 @@ def moe_serve(serve_mod) -> dict:
             "ttq_bytes": info.get("ttq_bytes"),
             "call_bytes": info["call_bytes"], "verify": ver}
         res["info"] = {"chains": info["chains"]}
-        res["out"] = out
+        if not quant:
+            res["out"] = out
     return res
 
 
@@ -1604,18 +1794,18 @@ def decode_profile(out, what: str, steps: int = 3) -> dict:
     return res
 
 
-def moe_f32_gates(serve_mod, out) -> dict:
-    """c: float32 weights and activations.  Every MoE call of the
-    reconstruct-then-serve teacher-forced run is replayed with the TT-native
-    banks (batched chain kernels) and with the reconstructed dense banks:
-    the same input, so the same routing; gated per layer at F32_TOL of the
-    dense output's scale.  The whole-model teacher-forced logits of both
-    are printed with the routing flips between them and their margins."""
+def moe_f32_gates(serve_mod, out, tt32, rx32) -> dict:
+    """c: float32 weights and activations (``tt32``, ``rx32``: the payload's
+    ``f32_params``).  Every MoE call of the reconstruct-then-serve
+    teacher-forced run is replayed with the TT-native banks (batched chain
+    kernels) and with the reconstructed dense banks: the same input, so the
+    same routing; gated per layer at F32_TOL of the dense output's scale.
+    The whole-model teacher-forced logits of both are printed with the
+    routing flips between them and their margins."""
     from repro_torch.models import common, mlp
     model = out["model"]
     m32 = _f32_model(model, DEVICE)
-    cfg32, layers, k = m32.cfg, model.cfg.num_layers, model.cfg.moe.num_experts_per_tok
-    tt32, rx32 = f32_params(out["payload"], model.cfg.family)
+    layers, k = model.cfg.num_layers, model.cfg.moe.num_experts_per_tok
     prompts = torch.as_tensor(out["prompts"], dtype=torch.int64,
                               device=DEVICE)
     with _Recorder(mlp, "moe_apply", lambda a, _: a[0].clone()) as xs, \
@@ -1642,31 +1832,8 @@ def moe_f32_gates(serve_mod, out) -> dict:
           f"{len(rx_r.calls) * prompts.shape[0]} token-layer routings "
           f"{json.dumps(flips[:10])}; launches {whole_counts}")
 
-    worst, per_layer = 0.0, []
-    reset_counts()
-    for layer in range(layers):
-        p_tt = common.layer_at(tt32.layers, layer).moe
-        p_rx = common.layer_at(rx32.layers, layer).moe
-        dl, sl = 0.0, 0.0
-        for x in xs.calls[layer::layers]:
-            got = mlp.moe_apply(x, p_tt, cfg32)
-            ref = mlp.moe_apply(x, p_rx, cfg32)
-            dd, ss = _gap(got, ref)
-            dl, sl = max(dl, dd), max(sl, ss)
-        check(dl <= F32_TOL * sl,
-              f"moe f32 layer {layer}: TT-native vs dense banks max|d| "
-              f"{dl:.3e} over {F32_TOL} * scale {sl:.3e}")
-        per_layer.append(dl / sl)
-        worst = max(worst, dl / sl)
-    counts = read_counts()
-    reset_counts()
-    want = len(MOE_BANKS) * len(xs.calls)
-    check(counts.get("tt_contract_2_batched", 0) == want
-          and counts.get("tt_contract_2_batched_fma", 0) == want
-          and counts.get("plain_chains", 0) == 0,
-          f"moe f32 gate: {counts} (want {want} batched launches, all on "
-          f"the float32 FFMA route)")
-    check_no_plain(counts, "moe f32 gate")
+    worst, per_layer = moe_replay(xs.calls, tt32, rx32, m32.cfg, layers,
+                                  "moe f32 gate")
     print(f"[chip_smoke] moe f32 gate: {len(xs.calls)} MoE calls replayed "
           f"with TT-native and dense banks, same routing: worst per-layer "
           f"max|d|/scale {worst:.3e} (gate {F32_TOL}); per layer "
@@ -1720,6 +1887,353 @@ def moe_kernel_phase(ops, cases, info) -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# Forward and checkpoint phase: the payload checkpoint, the dense and MoE
+# prefill and eval, and qwen3-8b at full width
+# ---------------------------------------------------------------------------
+
+FWD_B, FWD_S = 2, 4096       # dense prefill (qwen1.5-0.5b)
+DECODE_S = 256               # prefill vs the decode cache stepped through
+MOE_PREFILL_S = 2048         # olmoe prefill, B = 1: 320 rows an expert
+BIG_ARCH, BIG_LAYERS = "qwen3-8b", 8      # 8 of its 36 layers: the one cut
+BIG_SERVE_ARGS = ["--arch", BIG_ARCH, "--layers", str(BIG_LAYERS),
+                  "--batch", "4", "--prompt-len", "16", "--gen", "16",
+                  "--seed", "0", "--tt-eps", "0.2"]
+BIG_PREFILL_S = 4096
+
+
+def flip_byte(directory: str) -> None:
+    """Flip one byte in the middle of the first core's stored data in a
+    checkpoint's archive."""
+    path = Path(directory) / "tt_payload.npz"
+    with zipfile.ZipFile(path) as z:
+        member = next(i for i in z.infolist() if "__core0" in i.filename)
+    with open(path, "r+b") as f:
+        f.seek(member.header_offset + 26)     # the local header's lengths
+        name_len, extra_len = struct.unpack("<HH", f.read(4))
+        pos = (member.header_offset + 30 + name_len + extra_len
+               + member.file_size // 2)
+        f.seek(pos)
+        byte = f.read(1)[0]
+        f.seek(pos)
+        f.write(bytes([byte ^ 0x10]))
+
+
+def checkpoint_phase(serve_mod, out, ckpt_dir: str) -> dict:
+    """a: the tt run's checkpoint.  Every leaf loaded back equals the one in
+    memory bit for bit; ``serve --tt-checkpoint`` serves the in-memory run's
+    tokens; a copy with one flipped byte raises ``CheckpointCorrupt``."""
+    from repro_torch import tree
+    from repro_torch.checkpoint import checkpoint as ckpt
+    from repro_torch.core import compression as comp
+    t0 = time.perf_counter()
+    loaded, manifest = ckpt.load_tt_payload(ckpt_dir, like=out["payload"],
+                                            device=DEVICE)
+    saved = dict(tree.leaves_with_paths(out["payload"],
+                                        is_leaf=comp.is_compressed_param))
+    differ = []
+    for path, c in tree.leaves_with_paths(loaded,
+                                          is_leaf=comp.is_compressed_param):
+        ref = saved[path]
+        pairs = (list(zip(c.tt.cores, ref.tt.cores)) if c.kind == "tt"
+                 else [(c.raw, ref.raw)])
+        same = (c.kind == ref.kind and c.orig_shape == ref.orig_shape
+                and c.orig_dtype == ref.orig_dtype
+                and (c.kind != "tt" or c.tt.ranks == ref.tt.ranks)
+                and all(a.dtype == b.dtype and torch.equal(a, b)
+                        for a, b in pairs))
+        if not same:
+            differ.append(path)
+    check(not differ and len(saved) == len(manifest["leaves"]),
+          f"checkpoint: leaves {differ} differ from the saved payload")
+    load_s = time.perf_counter() - t0
+    del loaded
+    args = serve_mod.parse_args(SERVE_ARGS + [
+        "--weights", "tt", "--tt-checkpoint", ckpt_dir, "--no-verify"])
+    served, secs, counts = _counted(lambda: serve_mod.serve(args))
+    same = np.array_equal(served["generated"], out["generated"])
+    check(same, "checkpoint: tokens served from the checkpoint differ from "
+                "the in-memory run's")
+    check(counts.get("tt_contract_2", 0) > 0 and not counts.get(
+        "frob_truncate") and served["info"]["compress_s"] is None,
+          f"checkpoint serve: compressed or no chain kernel ({counts})")
+    del served
+    flipped = ckpt_dir + "-flipped"
+    shutil.copytree(ckpt_dir, flipped)
+    flip_byte(flipped)
+    try:
+        ckpt.load_tt_payload(flipped, like=out["payload"], device=DEVICE)
+        raised = "nothing"
+    except ckpt.CheckpointCorrupt as e:
+        raised = f"CheckpointCorrupt: {e}"
+    shutil.rmtree(flipped)
+    check(raised.startswith("CheckpointCorrupt"),
+          f"checkpoint: a flipped byte raised {raised}")
+    size = sum(f.stat().st_size for f in Path(ckpt_dir).iterdir())
+    print(f"[chip_smoke] checkpoint: {len(saved)} leaves ({size:,} bytes on "
+          f"disk) loaded back equal bit for bit in {load_s:.3f}s; served "
+          f"from it (no compression, {secs:.1f}s): same tokens {same}; "
+          f"flipped byte -> {raised[:90]}")
+    return {"leaves": len(saved), "bytes": size, "load_s": load_s,
+            "same_tokens": same, "serve_s": secs, "differ": differ}
+
+
+def _prefill_counts(counts, what: str, chains, flash: bool = False) -> None:
+    """The chain kernels of ``chains`` launched, no plain-path chain, no
+    plain call on the card, and (``flash`` False) no flash launch."""
+    check(all(counts.get(k, 0) > 0 for k in chains)
+          and counts.get("plain_chains", 0) == 0,
+          f"{what}: chain kernels {chains} not all launched: {counts}")
+    if not flash:
+        check(counts.get("flash_attention", 0) == 0,
+              f"{what}: {counts.get('flash_attention')} flash launches (the "
+              f"dense and MoE forward keep to the plain attention path)")
+    check_no_plain(counts, what)
+
+
+def _tokens(vocab: int, b: int, s: int, seed: int = 1) -> torch.Tensor:
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    return torch.randint(0, vocab, (b, s), generator=g, device=DEVICE)
+
+
+def dense_forward(out, what: str, b: int, s: int, eval_s: int = 0) -> dict:
+    """Prefill (and eval at B = 1, S = ``eval_s``) through the entry points
+    with the served TT-native bf16 weights under both impls: tok/s, the
+    chain kernels launched, no flash launch, equal losses."""
+    from repro_torch.train.steps import make_eval_step, make_prefill_step
+    model, params = out["model"], out["params"]
+    vocab = model.cfg.vocab_size
+    batch = {"tokens": _tokens(vocab, b, s)}
+    chains = ("tt_contract_2", "tt_contract_3")
+    res = {"tok_per_s": {}, "counts": {}}
+    for impl in ("pallas", "xla"):
+        step = make_prefill_step(model, impl=impl)
+        step(params, batch)                               # warm-up
+        lg, secs, counts = _counted(lambda: step(params, batch))
+        check(lg.shape == (b, vocab) and bool(torch.isfinite(lg).all()),
+              f"{what} prefill {impl}: logits {tuple(lg.shape)} not finite")
+        _prefill_counts(counts, f"{what} prefill {impl}", chains)
+        res["tok_per_s"][impl] = b * s / secs
+        res["counts"][impl] = counts
+        print(f"[chip_smoke] {what} prefill bf16 tt impl={impl}: B={b} S={s} "
+              f"in {secs:.3f}s = {b * s / secs:.0f} tok/s; launches {counts}")
+    if eval_s:
+        toks = batch["tokens"][:1, :eval_s]
+        batch1 = {"tokens": toks, "labels": torch.roll(toks, -1, 1)}
+        loss = {}
+        for impl in ("pallas", "xla"):
+            step = make_eval_step(model, impl=impl)
+            step(params, batch1)
+            metrics, secs, counts = _counted(lambda: step(params, batch1))
+            _prefill_counts(counts, f"{what} eval {impl}", chains)
+            loss[impl] = float(metrics["loss"])
+            res["tok_per_s"][f"eval/{impl}"] = eval_s / secs
+            print(f"[chip_smoke] {what} eval bf16 tt impl={impl}: B=1 "
+                  f"S={eval_s} loss {loss[impl]:.6f} in {secs:.3f}s = "
+                  f"{eval_s / secs:.0f} tok/s")
+        rel = abs(loss["pallas"] - loss["xla"]) / abs(loss["xla"])
+        res["eval_loss"], res["eval_rel"] = loss, rel
+        check(math.isfinite(loss["xla"]) and rel <= 1e-5,
+              f"{what} eval: losses {loss} differ by {rel:.3e} relative")
+    return res
+
+
+def dense_f32_gates(out, what: str) -> dict:
+    """Float32 activations and weights: TT-native prefill (chain kernels)
+    against reconstruct-then-prefill (plain) at B = FWD_B, S = FWD_S, and
+    prefill's last logits against the decode cache stepped through
+    DECODE_S tokens, both at F32_TOL of scale."""
+    from repro_torch.train.steps import make_prefill_step
+    model = out["model"]
+    m32 = _f32_model(model, DEVICE)
+    tt32, rx32 = f32_params(out["payload"], model.cfg.family)
+    batch = {"tokens": _tokens(model.cfg.vocab_size, FWD_B, FWD_S)}
+    got, _, counts = _counted(
+        lambda: make_prefill_step(m32, impl="pallas")(tt32, batch))
+    _prefill_counts(counts, f"{what} prefill TT f32",
+                    ("tt_contract_2", "tt_contract_3"))
+    ref = make_prefill_step(m32, impl="xla")(rx32, batch)
+    d, scale = _gap(got, ref)
+    res = {"tt_vs_reconstruct": d / scale}
+    check(d <= F32_TOL * scale, f"{what}: TT-native vs reconstruct prefill "
+                                f"max|d| {d:.3e} over {F32_TOL} * scale "
+                                f"{scale:.3e}")
+    print(f"[chip_smoke] {what} f32: TT-native prefill (chain kernels) vs "
+          f"reconstruct-then-prefill (plain), B={FWD_B} S={FWD_S}: "
+          f"max|d|/scale {d / scale:.3e}")
+    del rx32, got, ref
+    toks = batch["tokens"][:1, :DECODE_S]
+    last = make_prefill_step(m32, impl="pallas")(tt32, {"tokens": toks})
+    cache = m32.init_cache(1, DECODE_S)
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        for t in range(DECODE_S):
+            stepped, cache = m32.decode_step(tt32, cache, toks[:, t:t + 1])
+    torch.cuda.synchronize()
+    d, scale = _gap(last, stepped)
+    res["prefill_vs_decode"] = d / scale
+    check(d <= F32_TOL * scale, f"{what}: prefill vs decode-stepped logits at "
+                                f"position {DECODE_S - 1}: max|d| {d:.3e} "
+                                f"over {F32_TOL} * scale {scale:.3e}")
+    print(f"[chip_smoke] {what} f32: TT-native prefill vs {DECODE_S} decode "
+          f"steps through the KV cache ({time.perf_counter() - t0:.1f}s): "
+          f"last-position max|d|/scale {d / scale:.3e}")
+    return res
+
+
+def moe_replay(xs, tt32, rx32, cfg32, layers: int, what: str):
+    """Each recorded MoE input (layer-major, ``layers`` a pass) through the
+    layer's TT-native banks and its dense banks: per-layer max|d| / scale,
+    gated at F32_TOL; every bank call one batched launch on the float32
+    FFMA route.  Returns (worst, per layer)."""
+    from repro_torch.models import common, mlp
+    worst, per_layer = 0.0, []
+    reset_counts()
+    for layer in range(layers):
+        p_tt = common.layer_at(tt32.layers, layer).moe
+        p_rx = common.layer_at(rx32.layers, layer).moe
+        dl, sl = 0.0, 0.0
+        for x in xs[layer::layers]:
+            dd, ss = _gap(mlp.moe_apply(x, p_tt, cfg32),
+                          mlp.moe_apply(x, p_rx, cfg32))
+            dl, sl = max(dl, dd), max(sl, ss)
+        check(dl <= F32_TOL * sl,
+              f"{what} layer {layer}: TT-native vs dense banks max|d| "
+              f"{dl:.3e} over {F32_TOL} * scale {sl:.3e}")
+        per_layer.append(dl / sl)
+        worst = max(worst, dl / sl)
+    counts = read_counts()
+    reset_counts()
+    want = len(MOE_BANKS) * len(xs)
+    check(counts.get("tt_contract_2_batched", 0) == want
+          and counts.get("tt_contract_2_batched_fma", 0) == want
+          and counts.get("plain_chains", 0) == 0,
+          f"{what}: {counts} (want {want} batched launches, all on the "
+          f"float32 FFMA route)")
+    check_no_plain(counts, what)
+    return worst, per_layer
+
+
+def moe_prefill(ops, cases, keep, tt32, rx32, info) -> dict:
+    """c: olmoe-1b-7b prefill at B = 1, S = MOE_PREFILL_S (2,048 tokens: 320
+    rows an expert) with the served TT-native bf16 banks: tok/s, every bank
+    call one batched launch on a CUDA route, no plain call; in float32 each
+    MoE call of a reconstruct-then-prefill run replayed with the TT-native
+    and the dense banks; the banks against their plain version at 64
+    experts x 320 rows."""
+    from repro_torch.models import mlp
+    from repro_torch.train.steps import make_prefill_step
+    model = keep["model"]
+    cfg, layers = model.cfg, model.cfg.num_layers
+    batch = {"tokens": _tokens(cfg.vocab_size, 1, MOE_PREFILL_S)}
+    step = make_prefill_step(model, impl="pallas")
+    step(keep["params"], batch)
+    lg, secs, counts = _counted(lambda: step(keep["params"], batch))
+    check(bool(torch.isfinite(lg).all()), "moe prefill: non-finite logits")
+    want = len(MOE_BANKS) * layers
+    routes = {k: counts.get(f"tt_contract_2_batched_{k}", 0)
+              for k in ops.BANK_ROUTES}
+    check(counts.get("tt_contract_2_batched", 0) == want
+          and sum(routes.values()) == want,
+          f"moe prefill: {counts.get('tt_contract_2_batched', 0)} batched "
+          f"launches on routes {routes}, want {want} (3 banks x {layers} "
+          f"layers)")
+    _prefill_counts(counts, "moe prefill", ("tt_contract_3",))
+    cap = math.ceil(MOE_PREFILL_S * cfg.moe.num_experts_per_tok
+                    / cfg.moe.num_experts * 1.25)
+    print(f"[chip_smoke] moe prefill bf16 tt impl=pallas: B=1 "
+          f"S={MOE_PREFILL_S} ({cap} rows an expert) in {secs:.3f}s = "
+          f"{MOE_PREFILL_S / secs:.0f} tok/s; bank routes {routes}; "
+          f"launches {counts}")
+    res = {"tok_per_s": MOE_PREFILL_S / secs, "counts": counts,
+           "routes": routes, "rows_per_expert": cap}
+
+    m32 = _f32_model(model, DEVICE)
+    with _Recorder(mlp, "moe_apply", lambda a, _: a[0].clone()) as xs:
+        make_prefill_step(m32, impl="pallas")(rx32, batch)
+    res["worst"], res["per_layer"] = moe_replay(
+        xs.calls, tt32, rx32, m32.cfg, layers, "moe prefill f32")
+    print(f"[chip_smoke] moe prefill f32: {len(xs.calls)} MoE calls of "
+          f"{MOE_PREFILL_S} tokens replayed with TT-native and dense banks: "
+          f"worst per-layer max|d|/scale {res['worst']:.3e} (gate {F32_TOL})")
+    del xs
+    rec = stored_phase(ops, cases, chain_shapes(info, experts=True),
+                       "olmoe-1b-7b bank, prefill rows", experts=True,
+                       ec=((cfg.moe.num_experts, cap),), timed=())
+    res["banks_vs_plain"] = {k: v["max_abs_err"] for k, v in rec.items()}
+    print(f"[chip_smoke] moe banks at {cfg.moe.num_experts} experts x {cap} "
+          f"rows vs plain: max|d| {json.dumps(res['banks_vs_plain'])}")
+    return res
+
+
+def big_serve(serve_mod, rep: dict):
+    """d: qwen3-8b at full width, BIG_LAYERS of its 36 layers: ``serve
+    --weights tt`` from the checkpoint a child process compressed on the
+    card (``rep``: its report), with the main path's gates.  Returns (the
+    results, what ``big_kernels`` needs)."""
+    args = serve_mod.parse_args(BIG_SERVE_ARGS + [
+        "--weights", "tt", "--tt-checkpoint", rep["ckpt"]])
+    out, wall, counts = _counted(lambda: serve_mod.serve(args))
+    info, ver, gen = out["info"], out["verify"], out["generated"]
+    cfg = out["model"].cfg
+    check(cfg.num_layers == BIG_LAYERS and cfg.d_model == 4096,
+          f"{BIG_ARCH}: served {cfg.num_layers} layers of width "
+          f"{cfg.d_model}")
+    check(gen.shape == (4, 16) and gen.min() >= 0
+          and gen.max() < cfg.vocab_size,
+          f"{BIG_ARCH}: generated tokens {gen.shape} out of range")
+    check(bool(torch.isfinite(out["run"]["prompt_logits"]).all()),
+          f"{BIG_ARCH}: non-finite logits")
+    for k in ("tt_contract_2", "tt_contract_3"):
+        check(counts.get(k, 0) > 0, f"{BIG_ARCH}: kernel {k} never launched")
+    check(counts.get("plain_chains", 0) == 0,
+          f"{BIG_ARCH}: {counts.get('plain_chains')} plain-path chains")
+    check(info["ranks"] == {k: tuple(v) for k, v in rep["ranks"].items()},
+          f"{BIG_ARCH}: the checkpoint's ranks differ from the compression's")
+    check_no_plain(counts, BIG_ARCH)
+    breakdown, peak = rep["breakdown"], rep["peak_bytes"]
+    print(f"[chip_smoke] {BIG_ARCH} ({BIG_LAYERS} layers) tt: compressed in "
+          f"{rep['compress_s']:.3f}s (incl. the spectral decay, a child "
+          f"process), peak device memory {peak:,} B, payload ratio "
+          f"{info['payload_ratio']:.3f}; loaded in {info['load_s']:.3f}s; "
+          f"decode {out['tok_per_s']:.2f} tok/s; wall {wall:.1f}s; "
+          f"launches {counts}")
+    print(f"[chip_smoke] {BIG_ARCH} compression, where the time goes "
+          f"{json.dumps(breakdown)}")
+    print(f"[chip_smoke] {BIG_ARCH} ranks: " + json.dumps(rep["ranks"]))
+    print(f"[chip_smoke] {BIG_ARCH} bytes: {info['line']}")
+    print(f"[chip_smoke] {BIG_ARCH} reference-oracle gate (reported): "
+          f"max|d|/scale {ver['max_diff'] / ver['scale']:.4f} (bound 0.05)")
+    res = {"compress_s": rep["compress_s"], "breakdown": breakdown,
+           "peak_bytes": peak, "wall_s": wall, "counts": counts,
+           "compress_launches": rep["counts"],
+           "ranks": {k: list(v) for k, v in info["ranks"].items()},
+           "payload_ratio": info["payload_ratio"],
+           "dense_bytes": info["dense_bytes"], "tt_bytes": info["tt_bytes"],
+           "tok_per_s": out["tok_per_s"], "verify": ver}
+    res["eps_worst"] = eps_gate(decayed_params(out["model"]),
+                                out["payload"], f"{BIG_ARCH}, full width")
+    res["drivers_agree"] = drivers_agree(serve_mod, out, BIG_ARCH)
+    res["kernels_vs_plain"] = kernels_vs_plain(serve_mod, out,
+                                               f"{BIG_ARCH} tt")
+    res["f32_oracle"] = f32_oracle(serve_mod, out, BIG_ARCH)
+    keep = {"model": out["model"], "params": out["params"],
+            "shapes": chain_shapes(info)}
+    return res, keep
+
+
+def big_kernels(ops, cases, res: dict, keep: dict) -> None:
+    """d, timed: qwen3-8b's stored chains at B in {1, 4, BIG_PREFILL_S}
+    (``stored_phase``), and prefill at B = 1, S = BIG_PREFILL_S."""
+    res["chains"] = stored_phase(ops, cases, keep["shapes"], BIG_ARCH,
+                                 batch_sizes=(1, 4))
+    # timed at the prefill's rows too
+    res["chains_prefill_rows"] = stored_phase(
+        ops, cases, keep["shapes"], BIG_ARCH, batch_sizes=(BIG_PREFILL_S,),
+        report_b=BIG_PREFILL_S)
+    res["prefill"] = dense_forward(keep, BIG_ARCH, 1, BIG_PREFILL_S)
+
+
 # (JSON name, engine_cases kinds (timed first), source, TPU kernel, launch
 # counters summed)
 ENGINE_ROWS = [
@@ -1764,51 +2278,132 @@ def main() -> int:
           f"{torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}")
     from repro_torch.kernels import build as kbuild
+    work = tempfile.mkdtemp(prefix="chip_smoke_")
+    children = {}
+    try:
+        # qwen3-8b's compression, the longest, starts before the build
+        # (its process builds what it needs itself)
+        children[BIG_ARCH] = start_compression(BIG_ARCH, BIG_SERVE_ARGS,
+                                               work)
+        t0 = time.perf_counter()
+        kbuild.load_many([m.SOURCE for m in kernel_modules()])  # parallel
+        print(f"[chip_smoke] kernels built and loaded in "
+              f"{time.perf_counter() - t0:.2f}s")
+        children["recurrentgemma-2b"] = start_compression(
+            "recurrentgemma-2b", HYBRID_SERVE_ARGS, work)
+        return run_phases(t_start, work, children, ops, cases, fa_ops,
+                          serve_mod)
+    finally:
+        for child in children.values():
+            if child["proc"].poll() is None:
+                child["proc"].kill()
+                child["proc"].wait()
+            child["log"].close()
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def run_phases(t_start, work, children, ops, cases, fa_ops,
+               serve_mod) -> int:
+    """Every phase after the build.  While ``children`` compress
+    recurrentgemma-2b and qwen3-8b, the main path, the checkpoint, the
+    float32 gates, the engine's compressions and qwen3-8b's serve run
+    (their seconds and tok/s taken beside the children's work); the timed
+    kernel checks, the prefill throughputs and the phases after them run
+    once both children have ended."""
+    phase_s = {}
+    ckpt_dir = str(Path(work) / ARCH)
     t0 = time.perf_counter()
-    kbuild.load_many([m.SOURCE for m in kernel_modules()])   # in parallel
-    print(f"[chip_smoke] kernels built and loaded in "
-          f"{time.perf_counter() - t0:.2f}s")
+    paths = {w: run_main_path(ops, serve_mod, w, ckpt_dir)
+             for w in ("tt", "tt-int8")}
+    phase_s["main path"] = time.perf_counter() - t0
+    print(f"[chip_smoke] main path phase {phase_s['main path']:.1f}s")
+    torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
-    paths = {w: run_main_path(ops, serve_mod, w) for w in ("tt", "tt-int8")}
-    print(f"[chip_smoke] main path phase {time.perf_counter() - t0:.1f}s")
+    main_out = paths["tt"].pop("out")
+    fwd = {"checkpoint": checkpoint_phase(serve_mod, main_out, ckpt_dir)}
+    fwd["dense_f32"] = dense_f32_gates(main_out, ARCH)
+    torch.cuda.empty_cache()
+    phase_s["forward, qwen1.5"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    full = engine_fullwidth(serve_mod, paths["tt"])
+    resnet = engine_resnet()
+    svd_d = blocked_svd_check(full["wq"])
+    torch.cuda.empty_cache()
+    phase_s["TTD engine"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    compressed = {BIG_ARCH: finish_compression(BIG_ARCH, children[BIG_ARCH])}
+    phase_s["waiting for the compressions"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fwd["big"], big_keep = big_serve(serve_mod, compressed[BIG_ARCH])
+    torch.cuda.empty_cache()
+    phase_s[f"forward, {BIG_ARCH}"] = time.perf_counter() - t0
+
+    # the timed checks run with the card to themselves
+    t0 = time.perf_counter()
+    compressed["recurrentgemma-2b"] = finish_compression(
+        "recurrentgemma-2b", children["recurrentgemma-2b"])
+    phase_s["waiting for the compressions"] += time.perf_counter() - t0
 
     t0 = time.perf_counter()
     rec = stored_phase(ops, cases, chain_shapes(paths["tt"]["info"]),
                        "qwen1.5-0.5b")
     absorbed_phase(ops, cases)
-    print(f"[chip_smoke] kernel phase {time.perf_counter() - t0:.1f}s")
+    phase_s["kernel"] = time.perf_counter() - t0
+    print(f"[chip_smoke] kernel phase {phase_s['kernel']:.1f}s")
 
     t0 = time.perf_counter()
-    full = engine_fullwidth(serve_mod, paths["tt"])
-    resnet = engine_resnet()
+    fwd["dense"] = dense_forward(main_out, ARCH, FWD_B, FWD_S, eval_s=FWD_S)
+    del main_out
+    phase_s["forward, qwen1.5"] += time.perf_counter() - t0
+    t0 = time.perf_counter()
+    big_kernels(ops, cases, fwd["big"], big_keep)
+    del big_keep
+    torch.cuda.empty_cache()
+    phase_s[f"forward, {BIG_ARCH}"] += time.perf_counter() - t0
+
+    t0 = time.perf_counter()
     erec = engine_kernel_phase(engine_shapes(full["tts"], resnet["plan"]))
-    svd_d = blocked_svd_check(full["wq"])
-    print(f"[chip_smoke] TTD-engine phase {time.perf_counter() - t0:.1f}s")
+    phase_s["TTD engine"] += time.perf_counter() - t0
+    print(f"[chip_smoke] TTD-engine phase {phase_s['TTD engine']:.1f}s")
     del full["tts"], full["wq"]
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
-    served = hybrid_serve(serve_mod)
+    served = hybrid_serve(serve_mod, compressed["recurrentgemma-2b"])
     hrec = stored_phase(ops, cases, chain_shapes(served["out"]["info"]),
                         "recurrentgemma-2b", batch_sizes=(1, 4, 8192))
     hybrid = hybrid_prefill(served)
     del served["out"]
     torch.cuda.empty_cache()
     frec = flash_phase()
-    print(f"[chip_smoke] hybrid phase {time.perf_counter() - t0:.1f}s")
+    phase_s["hybrid"] = time.perf_counter() - t0
+    print(f"[chip_smoke] hybrid phase {phase_s['hybrid']:.1f}s")
 
     t0 = time.perf_counter()
     moe = moe_serve(serve_mod)
     served_moe = moe.pop("out")
-    keep = {k: served_moe[k] for k in ("model", "payload", "prompts")}
+    keep = {k: served_moe[k] for k in ("model", "payload", "prompts",
+                                       "params")}
     del served_moe
     torch.cuda.empty_cache()
-    gates = moe_f32_gates(serve_mod, keep)
-    del keep
+    tt32, rx32 = f32_params(keep["payload"], keep["model"].cfg.family)
+    gates = moe_f32_gates(serve_mod, keep, tt32, rx32)
+    t1 = time.perf_counter()
+    fwd["moe"] = moe_prefill(ops, cases, keep, tt32, rx32, moe["info"])
+    phase_s["forward, olmoe"] = time.perf_counter() - t1
+    del keep, tt32, rx32
     torch.cuda.empty_cache()
     mrec = moe_kernel_phase(ops, cases, moe.pop("info"))
-    print(f"[chip_smoke] moe phase {time.perf_counter() - t0:.1f}s")
+    phase_s["moe"] = time.perf_counter() - t0 - phase_s["forward, olmoe"]
+    print(f"[chip_smoke] moe phase {phase_s['moe']:.1f}s (and olmoe "
+          f"prefill {phase_s['forward, olmoe']:.1f}s)")
+
+    fwd_s = {k: v for k, v in phase_s.items() if k.startswith("forward")}
+    print(f"[chip_smoke] forward and checkpoint phase "
+          f"{sum(fwd_s.values()):.1f}s ({json.dumps(fwd_s)})")
 
     def bound_by(r):
         return ("bytes" if r["bytes"] / HBM_BYTES_PER_S
@@ -1946,6 +2541,19 @@ def main() -> int:
             "f32_oracle": p.get("f32_oracle")}
         for w, p in paths.items()}
     print(f"[chip_smoke] main path summary: {json.dumps(summary)}")
+    big = fwd["big"]
+    print(f"[chip_smoke] forward summary: " + json.dumps({
+        "checkpoint": fwd["checkpoint"],
+        "qwen1.5-0.5b": {"prefill": fwd["dense"], "f32": fwd["dense_f32"]},
+        "olmoe-1b-7b": {k: v for k, v in fwd["moe"].items()},
+        BIG_ARCH: {**{k: v for k, v in big.items()
+                      if not k.startswith("chains")},
+                   **{c: {k: {kk: v[kk] for kk in (
+                       "max_abs_err", "max_abs_err_bf16_x", "ms",
+                       "graph_ms", "bound_ms", "plain_ms", "library_ms")}
+                       for k, v in big[c].items()}
+                      for c in ("chains", "chains_prefill_rows")}}}))
+    print(f"[chip_smoke] phase seconds: {json.dumps(phase_s)}")
     print(f"[chip_smoke] total {time.perf_counter() - t_start:.1f}s")
     if FAILURES:
         print(f"[chip_smoke] {len(FAILURES)} failed check(s): {FAILURES}")
@@ -1959,4 +2567,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--compress"]:
+        sys.exit(compress_child(sys.argv[2], sys.argv[3], sys.argv[4:]))
     sys.exit(main())

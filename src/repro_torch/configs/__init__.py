@@ -12,6 +12,9 @@ NAME_TO_MODULE = {
     "qwen1.5-0.5b": "qwen1p5_0p5b",
     "recurrentgemma-2b": "recurrentgemma_2b",
     "olmoe-1b-7b": "olmoe_1b_7b",
+    "qwen3-8b": "qwen3_8b",
+    "qwen3-32b": "qwen3_32b",
+    "dbrx-132b": "dbrx_132b",
 }
 
 

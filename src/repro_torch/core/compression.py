@@ -120,6 +120,16 @@ def _account(report: CompressionReport, path: str, c: CompressedParam):
     report.per_param[path] = (c.kind, size, c.payload_params)
 
 
+def payload_report(payload) -> CompressionReport:
+    """The totals and per-param entries of an existing payload (one loaded
+    from a checkpoint: no plan fingerprint or executor statistics)."""
+    report = CompressionReport(total_params=0, payload_params=0)
+    for path, c in _tree.leaves_with_paths(payload,
+                                           is_leaf=is_compressed_param):
+        _account(report, path, c)
+    return report
+
+
 class TTCompressor:
     """Compress/decompress trees of parameters (tensors on any device; the
     decomposition runs where each tensor lives)."""

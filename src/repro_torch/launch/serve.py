@@ -16,7 +16,11 @@ converted to TT-native params, and decode contracts activations straight
 through the cores with the hand-written kernels — the dense matrices are
 never rebuilt.  An MoE expert bank serves as one expert-batched chain per
 layer (``tt_apply_experts``).  ``--weights tt-int8`` stores the cores as
-int8.
+int8.  ``--save-tt-checkpoint DIR`` writes the payload after the
+compression (``checkpoint.save_tt_payload``, the manifest naming the
+model family; int8 cores for ``--weights tt-int8``), and ``--tt-checkpoint
+DIR`` serves a saved payload instead of compressing, refusing one of
+another family.
 ``--verify`` (default on) reruns the batch on the reconstructed dense
 weights and reports logit parity; for int8 it reports tie-tolerant
 next-token agreement over every teacher-forced prompt position.
@@ -25,6 +29,7 @@ next-token agreement over every teacher-forced prompt position.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 from typing import Optional, Sequence
 
@@ -32,6 +37,7 @@ import numpy as np
 import torch
 
 from repro_torch import tree as _tree
+from repro_torch.checkpoint import checkpoint as _ckpt
 from repro_torch.configs import get_config
 from repro_torch.core import compression as _comp
 from repro_torch.core import tt_linear as _ttl
@@ -99,18 +105,51 @@ def _compress(model, args):
     return params, payload, report, time.perf_counter() - t0
 
 
-def _tt_setup(model, args, cfg, compressed=None):
-    """The compression (``_compress``, or ``compressed``: its result from
-    an earlier run of the same weights) and the TT-native params.
+def _load_checkpoint(model, args, cfg):
+    """The payload of ``--tt-checkpoint`` on the model's device, checked
+    against the arch's family; ``like`` is the model's own params tree, as
+    the reference's.  Returns (payload, report, seconds)."""
+    t0 = time.perf_counter()
+    like = model.init(args.seed)
+    payload, manifest = _ckpt.load_tt_payload(args.tt_checkpoint, like=like,
+                                              device=model.device)
+    del like
+    ck_family = manifest.get("family")
+    if ck_family is not None and ck_family != cfg.family:
+        raise ValueError(
+            f"TT checkpoint was compressed from family {ck_family!r}, "
+            f"cannot serve arch family {cfg.family!r}")
+    return payload, _comp.payload_report(payload), time.perf_counter() - t0
 
-    Returns (params_tt, payload, info, the dense params compressed)."""
+
+def _tt_setup(model, args, cfg, compressed=None):
+    """The payload — compressed here (``_compress``), taken from
+    ``compressed`` (an earlier run's compression of the same weights) or
+    loaded from ``--tt-checkpoint`` — and the TT-native params.
+
+    Returns (params_tt, payload, info, the dense params compressed: None
+    for a loaded payload)."""
     quant = _quant_of(args.weights)
-    params, payload, report, compress_s = compressed or _compress(model,
-                                                                   args)
+    load_s = None
+    if args.tt_checkpoint:
+        payload, report, load_s = _load_checkpoint(model, args, cfg)
+        params, compress_s, compressed = None, None, None
+    else:
+        params, payload, report, compress_s = compressed or _compress(
+            model, args)
+        compressed = (params, payload, report, compress_s)
+        if args.save_tt_checkpoint:
+            _ckpt.save_tt_payload(
+                args.save_tt_checkpoint, payload,
+                extra={"eps": args.tt_eps, "arch": cfg.name},
+                family=cfg.family, quant=quant, quant_calib=args.quant_calib)
+            print(f"[serve] TT payload saved to {args.save_tt_checkpoint}"
+                  + (f" ({quant} cores)" if quant else ""))
     params_tt = model_common.tt_native_params(payload, family=cfg.family)
     info = {
-        "compressed": (params, payload, report, compress_s),
+        "compressed": compressed,
         "compress_s": compress_s,
+        "load_s": load_s,
         "payload_ratio": report.ratio,
         "plan_fingerprint": report.plan_fingerprint,
         "exec_stats": report.exec_stats,
@@ -163,6 +202,8 @@ def serve(args, compressed=None) -> dict:
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    if args.layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=args.layers)
     model = build(cfg, device=args.device)
     rng = np.random.default_rng(args.seed)
     b = args.batch
@@ -174,8 +215,10 @@ def serve(args, compressed=None) -> dict:
     else:
         params, payload, info, dense = _tt_setup(model, args, cfg,
                                                  compressed)
-        print(f"[serve] compressed on {model.device} in "
-              f"{info['compress_s']:.3f}s; TT ranks "
+        how = (f"loaded from {args.tt_checkpoint} in {info['load_s']:.3f}s"
+               if args.tt_checkpoint else
+               f"compressed on {model.device} in {info['compress_s']:.3f}s")
+        print(f"[serve] {how}; TT ranks "
               + ", ".join(f"{k} {v}" for k, v in info["ranks"].items()))
         print(f"[serve] TT-native mode: {info['line']}")
 
@@ -226,6 +269,9 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", required=True)
     ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="serve only the first N layers of --arch (a cut "
+                         "of depth: every width as configured)")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen", type=int, default=16)
@@ -245,6 +291,14 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                     help="compression ε for the in-process TT payload")
     ap.add_argument("--tt-alpha", type=float, default=1.0,
                     help="spectral decay of the synthetic trained weights")
+    ap.add_argument("--tt-checkpoint", type=str, default=None,
+                    help="serve the TT payload saved in this directory "
+                         "(checkpoint.save_tt_payload layout) instead of "
+                         "compressing; its manifest's family must be "
+                         "--arch's")
+    ap.add_argument("--save-tt-checkpoint", type=str, default=None,
+                    help="after the compression, save the TT payload here "
+                         "(the manifest records the model family)")
     ap.add_argument("--verify", action="store_true", default=True,
                     help="cross-check against reconstruct-then-serve "
                          "(default on)")

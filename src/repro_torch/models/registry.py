@@ -6,9 +6,12 @@
   init_cache(batch, max_len) -> cache
   decode_step(params, cache, tokens) -> (logits, cache)
 
-for the dense and MoE families (decode only: their ``forward`` is a later
-slice) and the hybrid family (all five).  ``impl`` is the reference's: ``"xla"`` runs
-the plain attention path, ``"pallas"`` the hand-written flash kernel.
+for the dense, MoE and hybrid families.  ``impl`` is the reference's:
+``"xla"`` runs the plain attention path, ``"pallas"`` the hand-written
+flash kernel where the reference's would (the hybrid family's attention
+layers; the dense and MoE forward keep to the plain path under both, as the
+reference's scanned layer flag does).  A batch may carry ``prefix_embeds``
+(B, P, D), a frontend's embeddings put before the tokens.
 """
 
 from __future__ import annotations
@@ -36,15 +39,13 @@ class Model:
 
 
 def _build_transformer(cfg: ModelConfig, device: torch.device) -> Model:
-    def not_ported(*_args, **_kwargs):
-        raise NotImplementedError(
-            f"the {cfg.family} family's forward (prefill and loss) is not "
-            f"ported yet (ROADMAP queue 1, item 7)")
-
     return Model(
         cfg=cfg, device=device,
         init=lambda seed: tfm.init(seed, cfg, device),
-        prefill=not_ported, loss_fn=not_ported,
+        prefill=lambda p, b, impl="xla": tfm.prefill(
+            p, b["tokens"], cfg, prefix_embeds=b.get("prefix_embeds"),
+            impl=impl),
+        loss_fn=lambda p, b, impl="xla": tfm.loss_fn(p, b, cfg, impl=impl),
         # bf16 cache whatever the weights' dtype, as the reference's
         init_cache=lambda batch, max_len: tfm.init_cache(
             cfg, batch, max_len, device),

@@ -1,15 +1,21 @@
-"""Decoder-only transformer LM, dense and MoE families: init, KV cache,
-and the single-token ``decode_step`` — port of the JAX
-``models/transformer.py`` serving path.  A layer's FFN is the gated MLP
-(dense) or the MoE block (``cfg.moe`` set).  Layers run as a Python loop
-over the stacked params (``common.layer_at``): TT leaves select their lead
-row (an expert bank its (E, r_s) lead block), and their cores stay shared
-by every layer.
+"""Decoder-only transformer LM, dense and MoE families: init, the
+whole-sequence ``forward`` (``prefill``, ``loss_fn``), KV cache and the
+single-token ``decode_step`` — port of the JAX ``models/transformer.py``.
+A layer's FFN is the gated MLP (dense) or the MoE block (``cfg.moe`` set).
+Layers run as a Python loop over the stacked params (``common.layer_at``):
+TT leaves select their lead row (an expert bank its (E, r_s) lead block),
+and their cores stay shared by every layer.
+
+The reference scans the layers with ``is_global`` as scan input, so the flag
+reaches ``causal_attend`` as a tracer and ``impl="pallas"`` never takes the
+flash kernel in these families (ROADMAP queue 3, item 7).  ``forward``
+mirrors that by passing the flag as a tensor: both impls run the plain
+chunked attention path.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -65,6 +71,39 @@ def _layer_flags(cfg) -> list:
     return [(i + 1) % cfg.global_every == 0 for i in range(cfg.num_layers)]
 
 
+def _block(x, lp: LayerParams, is_global: torch.Tensor, cfg, positions,
+           impl: str):
+    h = common.rms_norm(x, lp.ln1, cfg.norm_eps)
+    q, k, v = attn.qkv_project(h, lp.attn, cfg, positions)
+    o = attn.causal_attend(q, k, v, cfg, window=cfg.window,
+                           is_global=is_global, impl=impl)
+    x = x + common.dense_apply(o, lp.attn.wo, in_ndim=2)
+    h = common.rms_norm(x, lp.ln2, cfg.norm_eps)
+    if cfg.moe is not None:
+        f = mlp_mod.moe_apply(h, lp.moe, cfg)
+    else:
+        f = mlp_mod.mlp_apply(h, lp.mlp, cfg.act)
+    return (x + f).to(x.dtype)
+
+
+def forward(params: TransformerParams, tokens: torch.Tensor, cfg,
+            prefix_embeds: Optional[torch.Tensor] = None,
+            impl: str = "xla") -> torch.Tensor:
+    """tokens (B, S) → final-normed hidden states (B, P + S, D), the
+    frontend's precomputed ``prefix_embeds`` (B, P, D) first."""
+    x = params.embed[tokens].to(torch_dtype(cfg.dtype))
+    if prefix_embeds is not None:
+        x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
+    b, s, _ = x.shape
+    positions = torch.arange(s, device=x.device).expand(b, s)
+    for l, is_global in enumerate(_layer_flags(cfg)):
+        # a tensor flag, as the reference's scanned one is a tracer
+        flag = torch.tensor(is_global, device=x.device)
+        x = _block(x, common.layer_at(params.layers, l), flag, cfg,
+                   positions, impl)
+    return common.rms_norm(x, params.final_norm, cfg.norm_eps)
+
+
 class DecodeCache(NamedTuple):
     k: torch.Tensor                       # (L, B, S_max, Hkv, Dh)
     v: torch.Tensor
@@ -84,7 +123,33 @@ def init_cache(cfg, batch: int, max_len: int, device,
 
 def logits_fn(params: TransformerParams, hidden: torch.Tensor, cfg):
     table = params.lm_head if params.lm_head is not None else params.embed
-    return common.unembed(hidden, table, cfg.logit_softcap)
+    return common.unembed(hidden, table, cfg.logit_softcap,
+                          real_vocab=cfg.vocab_size)
+
+
+def loss_fn(params: TransformerParams, batch: Dict[str, torch.Tensor], cfg,
+            impl: str = "xla") -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Next-token cross-entropy over ``batch["labels"]`` (masked by
+    ``batch["mask"]``); the prefix positions carry no loss."""
+    prefix = batch.get("prefix_embeds")
+    hidden = forward(params, batch["tokens"], cfg, prefix_embeds=prefix,
+                     impl=impl)
+    if prefix is not None:
+        hidden = hidden[:, prefix.shape[1]:, :]
+    logits = logits_fn(params, hidden, cfg)
+    loss = common.cross_entropy_loss(logits, batch["labels"],
+                                     batch.get("mask"))
+    return loss, {"loss": loss}
+
+
+def prefill(params: TransformerParams, tokens: torch.Tensor, cfg,
+            prefix_embeds: Optional[torch.Tensor] = None,
+            impl: str = "xla") -> torch.Tensor:
+    """Last-position logits (B, V) of the whole prompt (the reference's
+    prefill fills no cache either: its cost is the forward)."""
+    hidden = forward(params, tokens, cfg, prefix_embeds=prefix_embeds,
+                     impl=impl)
+    return logits_fn(params, hidden[:, -1:, :], cfg)[:, 0, :]
 
 
 def decode_step(params: TransformerParams, cache: DecodeCache,

@@ -25,17 +25,18 @@ def _children(x):
     return None
 
 
-def leaves_with_paths(tree, is_leaf: Optional[Callable[[Any], bool]] = None
-                      ) -> List[Tuple[str, Any]]:
-    """[(dot path, leaf)] in tree order; ``None`` subtrees have no leaves."""
-    out: List[Tuple[str, Any]] = []
+def leaves_with_keys(tree, is_leaf: Optional[Callable[[Any], bool]] = None
+                     ) -> List[Tuple[Tuple[str, ...], Any]]:
+    """[(key path, leaf)] in tree order, each key a field name, a sequence
+    index or a dict key as a string; ``None`` subtrees have no leaves."""
+    out: List[Tuple[Tuple[str, ...], Any]] = []
 
     def walk(x, path):
         if x is None:
             return
         kids = None if (is_leaf is not None and is_leaf(x)) else _children(x)
         if kids is None:
-            out.append((".".join(path), x))
+            out.append((path, x))
             return
         for k, v in kids:
             walk(v, path + (str(k),))
@@ -44,19 +45,27 @@ def leaves_with_paths(tree, is_leaf: Optional[Callable[[Any], bool]] = None
     return out
 
 
+def leaves_with_paths(tree, is_leaf: Optional[Callable[[Any], bool]] = None
+                      ) -> List[Tuple[str, Any]]:
+    """[(dot path, leaf)] in tree order; ``None`` subtrees have no leaves."""
+    return [(".".join(keys), leaf)
+            for keys, leaf in leaves_with_keys(tree, is_leaf)]
+
+
 def leaves(tree, is_leaf=None) -> list:
     return [leaf for _, leaf in leaves_with_paths(tree, is_leaf)]
 
 
-def map_with_path(fn: Callable[[str, Any], Any], tree,
+def map_with_keys(fn: Callable[[Tuple[str, ...], Any], Any], tree,
                   is_leaf: Optional[Callable[[Any], bool]] = None):
-    """Rebuild ``tree`` with every leaf replaced by ``fn(path, leaf)``."""
+    """Rebuild ``tree`` with every leaf replaced by ``fn(key path, leaf)``
+    (the keys of ``leaves_with_keys``)."""
 
     def walk(x, path):
         if x is None:
             return None
         if is_leaf is not None and is_leaf(x):
-            return fn(".".join(path), x)
+            return fn(path, x)
         if _is_namedtuple(x):
             return type(x)(*[walk(v, path + (k,))
                              for k, v in zip(x._fields, x)])
@@ -64,9 +73,16 @@ def map_with_path(fn: Callable[[str, Any], Any], tree,
             return type(x)(walk(v, path + (str(i),)) for i, v in enumerate(x))
         if isinstance(x, dict):
             return {k: walk(x[k], path + (str(k),)) for k in x}
-        return fn(".".join(path), x)
+        return fn(path, x)
 
     return walk(tree, ())
+
+
+def map_with_path(fn: Callable[[str, Any], Any], tree,
+                  is_leaf: Optional[Callable[[Any], bool]] = None):
+    """Rebuild ``tree`` with every leaf replaced by ``fn(path, leaf)``."""
+    return map_with_keys(lambda keys, leaf: fn(".".join(keys), leaf), tree,
+                         is_leaf)
 
 
 def map_leaves(fn: Callable[[Any], Any], tree, is_leaf=None):

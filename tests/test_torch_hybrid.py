@@ -239,11 +239,17 @@ def test_generate_drives_the_griffin_cache(pair):
 
 
 def test_dense_family_has_no_forward_yet():
+    """The dense family's forward is ported now (``test_torch_forward.py``
+    holds it to the reference): prefill and eval run beside the hybrid
+    family's through the same steps."""
     model = build(get_config("qwen1.5-0.5b").reduced(), device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1"):
-        model.prefill(None, {"tokens": None})
-    with pytest.raises(NotImplementedError, match="queue 1"):
-        make_eval_step(model)(None, {"tokens": None, "labels": None})
+    params = model.init(0)
+    tokens = torch.zeros((1, 4), dtype=torch.int64)
+    logits = make_prefill_step(model)(params, {"tokens": tokens})
+    assert logits.shape == (1, model.cfg.vocab_size)
+    metrics = make_eval_step(model)(params, {"tokens": tokens,
+                                             "labels": tokens})
+    assert bool(torch.isfinite(metrics["loss"]))
 
 
 @pytest.mark.parametrize("weights", ["dense", "tt"])

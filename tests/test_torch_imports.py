@@ -25,7 +25,8 @@ def _port_files():
     files = sorted((REPO / "src" / "repro_torch").rglob("*.py"))
     # chip_smoke.py and the card's timing tools (it imports cuda_timing)
     tools = [REPO / "tools" / f"{name}.py"
-             for name in ("cuda_timing", "kernel_time", "compress_time")]
+             for name in ("cuda_timing", "kernel_time", "compress_time",
+                          "decode_time", "flash_f32_drift")]
     return files + [REPO / "chip_smoke.py"] + tools
 
 
@@ -34,7 +35,11 @@ def test_port_files_exist():
     assert {"chip_smoke.py", "ops.py", "serve.py", "hbd.py", "blocked.py",
             "plan.py", "batch_exec.py", "resnet32.py",
             "engine_cases.py", "rglru.py", "steps.py",
-            "recurrentgemma_2b.py", "olmoe_1b_7b.py", "mlp.py"} <= names
+            "recurrentgemma_2b.py", "olmoe_1b_7b.py", "mlp.py",
+            "checkpoint.py", "qwen3_8b.py", "qwen3_32b.py",
+            "dbrx_132b.py", "flash_f32_drift.py"} <= names
+    assert (REPO / "src" / "repro_torch" / "checkpoint" / "checkpoint.py"
+            ).is_file()
     kernels = REPO / "src" / "repro_torch" / "kernels"
     for name in ("tt_contract", "householder", "block_update",
                  "singular_sort", "frob_truncate", "flash_attention"):

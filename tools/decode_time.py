@@ -7,9 +7,11 @@ compare two checkouts on one card.
 
 ``--save`` compresses each model as ``serve --weights tt`` does (random
 weights from seed 0 with the spectral decay, eps 0.2, on the card) and
-writes its payload to ``DIR/<arch>.pt``.  ``--load`` reads the payloads and,
-with the ``repro_torch`` under ``--src`` (default: this checkout's), serves
-each model from them: ``tt`` and ``tt-int8`` (recurrentgemma-2b ``tt``
+writes its payload as a TT checkpoint to ``DIR/<arch>``
+(``checkpoint.save_tt_payload``, the layout ``serve --tt-checkpoint``
+reads).  ``--load`` reads the checkpoints with the ``repro_torch`` under
+``--src`` (default: this checkout's; it must have
+``repro_torch.checkpoint``) and serves each model from them: ``tt`` and ``tt-int8`` (recurrentgemma-2b ``tt``
 only), 4 greedy requests, prompt 16, gen 16, the fused driver; one warm-up
 run, then decode tok/s of two runs, resident weight bytes, the peak device
 memory of a run, and ``torch.profiler`` over 3 fused decode steps after the
@@ -35,6 +37,7 @@ PREFILL_B, PREFILL_S = 2, 4096
 
 
 def save(torch, archs, out_dir):
+    from repro_torch.checkpoint.checkpoint import save_tt_payload
     from repro_torch.configs import get_config
     from repro_torch.launch import serve as serve_mod
     from repro_torch.models.registry import build
@@ -47,7 +50,9 @@ def save(torch, archs, out_dir):
         _, payload, _, _ = serve_mod._tt_setup(model, args, cfg)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
-        torch.save(payload, os.path.join(out_dir, f"{arch}.pt"))
+        save_tt_payload(os.path.join(out_dir, arch), payload,
+                        extra={"eps": args.tt_eps, "arch": arch},
+                        family=cfg.family)
         print(json.dumps({"arch": arch, "saved": True, "compress_s": secs}))
         del payload, model
         torch.cuda.empty_cache()
@@ -86,6 +91,7 @@ def _profile(torch, model, params, prompts, steps=3):
 
 def load(torch, archs, in_dir, src):
     import numpy as np
+    from repro_torch.checkpoint.checkpoint import load_tt_payload
     from repro_torch.configs import get_config
     from repro_torch.core import tt_linear as ttl
     from repro_torch.launch import engine
@@ -95,8 +101,10 @@ def load(torch, archs, in_dir, src):
     for arch in archs:
         cfg = get_config(arch)
         model = build(cfg, device="cuda")
-        payload = torch.load(os.path.join(in_dir, f"{arch}.pt"),
-                             weights_only=False)
+        like = model.init(0)
+        payload, _ = load_tt_payload(os.path.join(in_dir, arch), like=like,
+                                     device="cuda")
+        del like
         prompts = np.random.default_rng(0).integers(
             0, cfg.vocab_size, size=(4, 16), dtype=np.int32)
         for weights in (("tt",) if cfg.family == "hybrid"
