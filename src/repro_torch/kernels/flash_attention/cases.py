@@ -72,6 +72,19 @@ TILED_ABS = 2e-3
 # The tile-wise plain version ``ops.mha_tf32x3`` sits at 2^-20 or less on
 # the CPU; plain TF32 (hi·hi alone) at 2^-12 to 2^-10.6, which this rejects.
 F64_REL = 2 ** -14
+# The float32 route's signed bias, on a row of the path's 864 mma steps (D =
+# 256 and 2,048 live keys, non-causal so every row has them all) with V
+# positive, where a rounding that leans one way cannot cancel:
+# |mean(got - ref64)| / mean|ref64| stays within BIAS_FACTOR times that of
+# ``mha_ref`` in float32 (rounded to nearest by the CPU or cuBLAS), or of
+# BIAS_FLOOR where that falls below it: unbiased float32 sums leave a mean
+# of either sign, near 1e-10 to 1e-8 of |o| on these 524,288 outputs, and
+# one draw may sit at 7e-11.  An accumulation that rounds toward zero in
+# every step lands near 864·2^-25 ≈ 2.6e-5 of |o|, hundreds of times the
+# bound.
+BIAS_SHAPE = (1, 2048, 1, 1, 256, False, None)
+BIAS_FACTOR = 2.0
+BIAS_FLOOR = 2.0 ** -24
 
 
 @dataclass
@@ -122,3 +135,25 @@ def f64_gap(got: torch.Tensor, ref64: torch.Tensor) -> float:
     """max|got - ref64| / max|ref64|: the float32 route agrees with float64
     when this is at most ``F64_REL``."""
     return float((got.double() - ref64).abs().max() / ref64.abs().max())
+
+
+def bias_inputs(gen: torch.Generator, device):
+    """q, k unit-normal and v = |normal| + 1/2, float32, at ``BIAS_SHAPE``."""
+    b, s, hq, hkv, d, _, _ = BIAS_SHAPE
+
+    def rn(h):
+        return torch.randn((b, s, h, d), generator=gen, device=device)
+
+    return rn(hq), rn(hkv), rn(hkv).abs() + 0.5
+
+
+def signed_bias(got: torch.Tensor, ref64: torch.Tensor) -> float:
+    """mean(got - ref64) / mean|ref64|, the signed error that a rounding
+    leaning one way leaves."""
+    return float((got.double() - ref64).mean() / ref64.abs().mean())
+
+
+def bias_bound(plain: float) -> float:
+    """The bound on |signed_bias| of a route whose float32 plain version
+    shows ``plain``."""
+    return BIAS_FACTOR * max(abs(plain), BIAS_FLOOR)

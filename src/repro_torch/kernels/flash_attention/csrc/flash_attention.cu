@@ -55,6 +55,11 @@
 //     of the product, is dropped), for Q K^T and for P V, P split in
 //     registers; Q K^T keeps hi*hi and the two small products in separate
 //     accumulators; the output is rescaled only when a row's max moved;
+//   * P V is not summed across key tiles in the tensor cores' accumulators,
+//     which round toward zero (a bias of ~1e-5 of |o| over a row's 864 mma
+//     steps at D = 256): each 8-key group's products (D = 256), or a key
+//     tile's (D <= 128, where the per-group form spills), go into a zeroed
+//     fragment added to O with round-to-nearest adds;
 //   * one block per (query rows, head, batch row), warps of 16 rows,
 //     heaviest query tiles first: 4 warps and 32-key K/V tiles up to D =
 //     128, 8 warps and 16-key tiles at D = 256 (F32Tile); K/V tiles
@@ -662,31 +667,70 @@ __global__ void __launch_bounds__(F32Tile<D>::WARPS * 32, 1)
       }
     }
 
-    // O += P V: 16 rows x D, D / 8 accumulators of 16 x 8; P split in
-    // registers, the three products small ones first
+    // O += P V: 16 rows x D, D / 8 accumulators of 16 x 8.  The tensor
+    // cores' accumulator rounds toward zero, so the products go into a
+    // zeroed fragment that is added to O with round-to-nearest adds: the
+    // truncation stays inside the fragment's few steps and the sum over the
+    // row's key tiles is unbiased.  At D = 256 (NJ = 2) a fragment takes one
+    // 8-key group (its three products, small ones first); below, where that
+    // form spills at D = 128 (4 groups a tile), one fragment per output tile
+    // takes the whole key tile, the key groups innermost, P split once
+    if constexpr (NJ <= 2) {
 #pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      uint32_t ph[4], pl[4];
-      split_tf32(s[j][0], ph[0], pl[0]);
-      split_tf32(s[j][2], ph[1], pl[1]);
-      split_tf32(s[j][1], ph[2], pl[2]);
-      split_tf32(s[j][3], ph[3], pl[3]);
-      const float* vr = sv + vf_off + 8 * j * T::VS;
+      for (int j = 0; j < NJ; ++j) {
+        uint32_t ph[4], pl[4];
+        split_tf32(s[j][0], ph[0], pl[0]);
+        split_tf32(s[j][2], ph[1], pl[1]);
+        split_tf32(s[j][1], ph[2], pl[2]);
+        split_tf32(s[j][3], ph[3], pl[3]);
+        const float* vr = sv + vf_off + 8 * j * T::VS;
+#pragma unroll
+        for (int a = 0; a < D / 32; ++a) {
+          const float4 v0 = *reinterpret_cast<const float4*>(vr + 32 * a);
+          const float4 v1 =
+              *reinterpret_cast<const float4*>(vr + T::VS + 32 * a);
+          const float w0[4] = {v0.x, v0.y, v0.z, v0.w};
+          const float w1[4] = {v1.x, v1.y, v1.z, v1.w};
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            uint32_t bh0, bl0, bh1, bl1;
+            split_tf32(w0[i], bh0, bl0);
+            split_tf32(w1[i], bh1, bl1);
+            float f[4] = {0.f, 0.f, 0.f, 0.f};
+            mma_tf32(f, pl, bh0, bh1);
+            mma_tf32(f, ph, bl0, bl1);
+            mma_tf32(f, ph, bh0, bh1);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[4 * a + i][e] += f[e];
+          }
+        }
+      }
+    } else {
+      uint32_t ph[NJ][4], pl[NJ][4];
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        split_tf32(s[j][0], ph[j][0], pl[j][0]);
+        split_tf32(s[j][2], ph[j][1], pl[j][1]);
+        split_tf32(s[j][1], ph[j][2], pl[j][2]);
+        split_tf32(s[j][3], ph[j][3], pl[j][3]);
+      }
 #pragma unroll
       for (int a = 0; a < D / 32; ++a) {
-        const float4 v0 = *reinterpret_cast<const float4*>(vr + 32 * a);
-        const float4 v1 =
-            *reinterpret_cast<const float4*>(vr + T::VS + 32 * a);
-        const float w0[4] = {v0.x, v0.y, v0.z, v0.w};
-        const float w1[4] = {v1.x, v1.y, v1.z, v1.w};
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
-          uint32_t bh0, bl0, bh1, bl1;
-          split_tf32(w0[i], bh0, bl0);
-          split_tf32(w1[i], bh1, bl1);
-          mma_tf32(acc[4 * a + i], pl, bh0, bh1);
-          mma_tf32(acc[4 * a + i], ph, bl0, bl1);
-          mma_tf32(acc[4 * a + i], ph, bh0, bh1);
+          float f[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+          for (int j = 0; j < NJ; ++j) {
+            const float* vr = sv + vf_off + 8 * j * T::VS + 32 * a + i;
+            uint32_t bh0, bl0, bh1, bl1;
+            split_tf32(vr[0], bh0, bl0);
+            split_tf32(vr[T::VS], bh1, bl1);
+            mma_tf32(f, pl[j], bh0, bh1);
+            mma_tf32(f, ph[j], bl0, bl1);
+            mma_tf32(f, ph[j], bh0, bh1);
+          }
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[4 * a + i][e] += f[e];
         }
       }
     }

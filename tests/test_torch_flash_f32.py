@@ -15,7 +15,12 @@ unit-normal numpy inputs it is held:
   ``EXTRA_SHAPES``;
 * against ``mha_ref`` run in float64 at ``cases.F64_REL`` of max|ref|, the
   bound the card's kernel is held to (its derivation is beside it in
-  ``cases.py``); plain TF32 (hi·hi alone) on the same tiles exceeds it.
+  ``cases.py``); plain TF32 (hi·hi alone) on the same tiles exceeds it;
+* for its sign: at ``cases.BIAS_SHAPE`` (every row 864 mma steps, V
+  positive) its mean error against float64 stays within
+  ``cases.bias_bound`` of that of ``mha_ref`` in float32, as the
+  card's kernel is held in ``tests/test_torch_kernels_cuda.py``: its sums
+  round to nearest, as the kernel's accumulation across key groups does.
 """
 
 import jax.numpy as jnp
@@ -107,3 +112,20 @@ def test_tf32x3_route_within_the_float64_bound(shape):
                     lambda p, vt: torch.einsum(ref._PV, ref.tf32_rna(p),
                                                ref.tf32_rna(vt)))
     assert cases.f64_gap(one, ref64) > 2 * cases.F64_REL
+
+
+def test_tf32x3_route_accumulates_without_bias():
+    """4.86e-9 of mean|o| for ``mha_tf32x3`` against 6.85e-11 for
+    ``mha_ref`` in float32 (seed 0, on the CPU), so the bound is
+    ``cases.BIAS_FLOOR``·2 = 1.19e-7; a sum truncated in each of the row's
+    864 steps would sit near -2.6e-5."""
+    gen = torch.Generator().manual_seed(0)
+    q, k, v = cases.bias_inputs(gen, "cpu")
+    causal, window = cases.BIAS_SHAPE[5:]
+    ref64 = ops.mha_ref(q.double(), k.double(), v.double(), causal=causal,
+                        window=window)
+    plain = cases.signed_bias(ops.mha_ref(q, k, v, causal=causal,
+                                          window=window), ref64)
+    route = cases.signed_bias(ops.mha_tf32x3(q, k, v, causal=causal,
+                                             window=window), ref64)
+    assert abs(route) <= cases.bias_bound(plain), (route, plain)

@@ -651,6 +651,23 @@ def test_flash_attention_matches_plain_on_card(cuda_device, shape, dtype):
 
 
 @pytest.mark.cuda
+def test_flash_f32_accumulates_without_bias_on_card(cuda_device):
+    """The float32 route's signed error against float64 at
+    ``cases.BIAS_SHAPE`` within ``cases.bias_bound`` of that of ``mha_ref``
+    in float32 (cuBLAS, TF32 off) on the same inputs."""
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    q, k, v = flash_cases.bias_inputs(gen, cuda_device)
+    causal, window = flash_cases.BIAS_SHAPE[5:]
+    ref64 = flash_ops.mha_ref(q.double(), k.double(), v.double(),
+                              causal=causal, window=window)
+    plain = flash_cases.signed_bias(
+        flash_ops.mha_ref(q, k, v, causal=causal, window=window), ref64)
+    got = flash_cases.signed_bias(
+        flash_ops.mha_flash(q, k, v, causal=causal, window=window), ref64)
+    assert abs(got) <= flash_cases.bias_bound(plain), (got, plain)
+
+
+@pytest.mark.cuda
 def test_flash_attention_checks(cuda_device):
     q = torch.randn(1, 200, 2, 64, device=cuda_device)
     with pytest.raises(ValueError, match="multiple of min"):
