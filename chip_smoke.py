@@ -187,6 +187,38 @@
    the card line again, and as the last line ``{"ok": true, "device":
    {...}}``.
 
+9. Serving phase (``prng``, ``models/common`` sampling and slot
+   machinery, ``launch/engine.Engine``, ``launch/router``,
+   ``launch/server``), run after 4 while the children still compress (its
+   gates are exact; its tok/s are taken beside them); 9c in the hybrid
+   phase:
+   a. the sampler on the card: threefry keys and bits, ``fold_in``, a
+      categorical draw and ``sample_tokens`` equal to the port on the CPU
+      and to answers taken from the JAX package; on identical logits
+      (8 rows x 151,936, mixed per-slot temperatures and top-k, 16 steps)
+      card tokens equal to CPU tokens, any mismatch printed and gated to
+      be a near-tie within the Gumbel noise's ulps; 65,536 draws of one
+      64-way distribution at temperature 0.7, top-k 16: nothing outside
+      the top 16, χ² p-value above 1e-3;
+   b. the ``Engine`` on full-width qwen1.5-0.5b in float32 (the main
+      path's checkpoint as TT-native params with float32 cores), 4 slots,
+      chunks of 8, 12 requests (prompts 3-32, gens 4-32, greedy and
+      sampled mixed) in both admission modes: every completion equal to
+      its isolated ``generate`` run, scan == boundary byte for byte, every
+      chain on a kernel, and no host sync inside a chunk
+      (``torch.cuda.set_sync_debug_mode("error")`` around each chunk);
+      then the same stream in bf16 ``tt`` and ``tt-int8``: tok/s,
+      occupancy, agreement of 2 requests with their isolated runs
+      (reported);
+   c. the hybrid phase's recurrentgemma-2b checkpoint (float32 TT-native)
+      through the Engine, 6 requests: staggered == isolated;
+   d. ``serve --serve --weights tt --tt-checkpoint`` (the main path's
+      checkpoint) with 2 replicas x 4 slots (``serve.make_router``) behind
+      ``server.serve_in_thread`` on an ephemeral port; over HTTP 8 JSON and
+      2 SSE requests whose tokens equal their isolated runs, a 504 on a
+      1 ms deadline and then a served request, a 429 past the queue depth,
+      and 12 dropped streams whose slots come back.
+
 Cuts of depth (every width as configured): qwen3-8b runs 8 of its 36
 layers; recurrentgemma-2b ``HYBRID_LAYERS`` of its 26.  Nothing else is
 cut.
@@ -2236,6 +2268,431 @@ def big_kernels(ops, cases, res: dict, keep: dict) -> None:
 
 # (JSON name, engine_cases kinds (timed first), source, TPU kernel, launch
 # counters summed)
+# ---------------------------------------------------------------------------
+# Serving phase: sampler, Engine, router and HTTP front door
+# ---------------------------------------------------------------------------
+
+# known answers taken from the JAX package (jax 0.9, threefry partitionable)
+JAX_KEY_42 = [0, 42]
+JAX_FOLD_42_7 = [2547012911, 1371500959]
+JAX_SLOT_KEYS_5 = [[2724472204, 3573582090], [202567368, 3886822060],
+                   [3594430910, 1784718894]]
+JAX_BITS_0_1 = [31327077, 89727312, 2497208264, 1554082365, 957939715,
+                512339923]
+JAX_BITS_0_1_LAST = [224656000, 2771682342, 947058821]   # of a (151936,) draw
+JAX_CATEGORICAL_9 = [63, 7, 47, 63]       # categorical, slot_keys(9, 4)
+JAX_TOKENS_9 = [63, 23, 36, 63]           # sample_tokens, temp 0.7, top-k 16
+CHI2_DRAWS, CHI2_V, CHI2_TEMP, CHI2_K = 65_536, 64, 0.7, 16
+SERVE_SLOTS, SERVE_CHUNK = 4, 8
+SERVE_MAX_LEN = 64                        # prompts 3-32 + gens 4-32
+AGREE_REQS = 2                            # bf16 / int8: isolated runs kept
+
+
+def serve_stream(vocab: int, n: int = 12, seed: int = 22, plen=(3, 33),
+                 gen=(4, 33)):
+    """A request stream: prompts of 3-32 tokens and gens of 4-32 (by
+    default), every second request sampled (its temperature and top-k from
+    a small table), request i under seed i."""
+    rng = np.random.default_rng(seed)
+    table = [(0.7, None), (1.0, 16), (0.9, 64)]
+    out = []
+    for i in range(n):
+        p = rng.integers(0, vocab, int(rng.integers(*plen)), np.int32)
+        t, k = (0.0, None) if i % 2 == 0 else table[(i // 2) % len(table)]
+        out.append({"prompt": p, "gen": int(rng.integers(*gen)), "seed": i,
+                    "temperature": t, "top_k": k})
+    return out
+
+
+def sampler_phase() -> dict:
+    """9a: threefry keys and bits, and sampled tokens, on the card against
+    the port on the CPU and against known answers from the JAX package;
+    a χ² test of 65,536 draws."""
+    from repro_torch import prng
+    from repro_torch.models import common
+    rec = {}
+    for dev in ("cpu", DEVICE):
+        k0 = prng.fold_in(prng.PRNGKey(0, device=dev), 1)
+        keys = common.slot_keys(9, 4, device=dev)
+        lg = torch.from_numpy((np.arange(64) % 13 * 0.37).astype(
+            np.float32)[None].repeat(4, 0)).to(dev)
+        rec[dev] = {
+            "key": prng.PRNGKey(42, device=dev).tolist(),
+            "fold": prng.fold_in(prng.PRNGKey(42, device=dev), 7).tolist(),
+            "slot_keys": common.slot_keys(5, 3, device=dev).tolist(),
+            "bits": prng.random_bits(k0, (151_936,)).cpu(),
+            "cat": prng.categorical(keys, lg).tolist(),
+            "tok": common.sample_tokens(lg, keys, common.Sampling(
+                CHI2_TEMP, CHI2_K)).tolist()}
+    gpu, cpu = rec[DEVICE], rec["cpu"]
+    known = (gpu["key"] == JAX_KEY_42 and gpu["fold"] == JAX_FOLD_42_7
+             and gpu["slot_keys"] == JAX_SLOT_KEYS_5
+             and gpu["bits"][:6].tolist() == JAX_BITS_0_1
+             and gpu["bits"][-3:].tolist() == JAX_BITS_0_1_LAST
+             and gpu["cat"] == JAX_CATEGORICAL_9
+             and gpu["tok"] == JAX_TOKENS_9)
+    same = all(torch.equal(gpu[k], cpu[k]) if k == "bits" else gpu[k] == cpu[k]
+               for k in gpu)
+    check(known, "sampler: card keys/bits/tokens differ from the JAX answers")
+    check(same, "sampler: card keys/bits/tokens differ from the CPU's")
+
+    # identical logits, mixed per-slot params, 32 steps: card vs CPU tokens
+    b, v, steps = 8, 151_936, 16
+    gen = torch.Generator().manual_seed(5)
+    logits = torch.randn((b, v), generator=gen) * 3.0
+    temp = torch.tensor([0.0, 0.7, 1.0, 1.3, 0.9, 0.5, 1.1, 0.8])
+    topk = torch.tensor([0, 0, 16, 64, 1, 0, 512, 40])
+    base = common.slot_keys(11, b)
+    mismatches = []
+    t0 = time.perf_counter()
+    for step in range(steps):
+        keys = prng.fold_in(base, step)
+        want = common.sample_tokens_per_slot(logits, keys, temp, topk)
+        got = common.sample_tokens_per_slot(
+            logits.to(DEVICE), keys.to(DEVICE), temp.to(DEVICE),
+            topk.to(DEVICE)).cpu()
+        for r in torch.nonzero(got != want).flatten().tolist():
+            # a mismatch is a near-tie: the two tokens' perturbed scores
+            # on the CPU within the Gumbel noise's few-ulp gap
+            g = prng.gumbel(keys[r], (v,)) + logits[r] / temp[r]
+            a, c = float(g[want[r]]), float(g[got[r]])
+            gap = abs(a - c)
+            ok = gap <= 4 * 2.0 ** -23 * max(abs(a), 1.0)
+            mismatches.append({"step": step, "row": r, "cpu": int(want[r]),
+                               "card": int(got[r]), "gap": gap,
+                               "near_tie": ok})
+            print(f"[chip_smoke] sampler mismatch step {step} row {r}: cpu "
+                  f"{int(want[r])} card {int(got[r])} score gap {gap:.3e} "
+                  f"({'near-tie' if ok else 'NOT a near-tie'})")
+            check(ok, f"sampler: card token {int(got[r])} vs cpu "
+                      f"{int(want[r])} is no near-tie (gap {gap:.3e})")
+    torch.cuda.synchronize()
+    per_step_ms = (time.perf_counter() - t0) / steps * 1e3
+
+    # chi-squared: 65,536 rows of one 64-way distribution, one key each
+    from scipy import stats
+    row = torch.linspace(-2.0, 2.0, CHI2_V)
+    x = row[None].repeat(CHI2_DRAWS, 1).to(DEVICE)
+    keys = common.slot_keys(17, CHI2_DRAWS, device=DEVICE)
+    toks = common.sample_tokens(x, keys, common.Sampling(CHI2_TEMP, CHI2_K))
+    counts = torch.bincount(toks, minlength=CHI2_V).cpu().double()
+    top = torch.topk(row, CHI2_K).indices
+    outside = int(counts.sum() - counts[top].sum())
+    p = torch.softmax(row[top].double() / CHI2_TEMP, dim=0)
+    chi2, pval = stats.chisquare(counts[top].numpy(),
+                                 (p * CHI2_DRAWS).numpy())
+    check(outside == 0, f"sampler: {outside} draws outside the top {CHI2_K}")
+    check(pval > 1e-3, f"sampler: chi-squared p-value {pval:.3e} <= 1e-3")
+    res = {"known_answers": known, "card_equals_cpu": same,
+           "token_rows": b * steps, "mismatches": mismatches,
+           "per_slot_step_ms": per_step_ms, "chi2": float(chi2),
+           "chi2_p": float(pval), "outside_top_k": outside}
+    print(f"[chip_smoke] sampler: JAX answers {known}, card == CPU keys and "
+          f"bits {same}; {b * steps} sampled rows, {len(mismatches)} "
+          f"mismatches; {CHI2_DRAWS} draws at temp {CHI2_TEMP}, top-k "
+          f"{CHI2_K}: chi2 {chi2:.2f}, p {pval:.4f}, {outside} outside the "
+          f"top {CHI2_K}")
+    return res
+
+
+class _NoSyncSteps:
+    """Wrap ``engine._run_steps`` in ``torch.cuda.set_sync_debug_mode
+    ("error")``: a device-to-host read or a host sync inside a chunk
+    raises.  Counts the chunks it saw."""
+
+    def __init__(self, engine_mod):
+        self.mod, self.orig, self.chunks = engine_mod, engine_mod._run_steps, 0
+
+    def __enter__(self):
+        def wrapped(*a, **k):
+            self.chunks += 1
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return self.orig(*a, **k)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        self.mod._run_steps = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        self.mod._run_steps = self.orig
+
+
+def engine_stream(engine_mod, model, params, stream, admission: str,
+                  no_sync: bool = False) -> dict:
+    """One ``Engine`` (SERVE_SLOTS slots, SERVE_CHUNK steps a chunk) over
+    ``stream``; launch counts over exactly its run."""
+    eng = engine_mod.Engine(model, params, slots=SERVE_SLOTS,
+                            max_len=SERVE_MAX_LEN, chunk_steps=SERVE_CHUNK,
+                            admission=admission)
+    uids = [eng.submit(r["prompt"], r["gen"], seed=r["seed"],
+                       temperature=r["temperature"], top_k=r["top_k"])
+            for r in stream]
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if no_sync:
+        with _NoSyncSteps(engine_mod) as guard:
+            done = {c.uid: c for c in eng.run()}
+    else:
+        done = {c.uid: c for c in eng.run()}
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    reset_counts()
+    comps = [done[u] for u in uids]
+    return {"comps": comps, "wall_s": wall, "counts": counts,
+            "steps": eng.steps, "occupancy": eng.occupancy,
+            "tok_per_s": sum(r["gen"] for r in stream) / wall,
+            "chunks_no_sync": guard.chunks if no_sync else 0}
+
+
+def isolated_runs(engine_mod, model, params, stream) -> list:
+    return [engine_mod.generate(
+        model, params, r["prompt"][None], r["gen"], seed=r["seed"],
+        temperature=r["temperature"], top_k=r["top_k"])["gen"][0]
+        for r in stream]
+
+
+def _chains_on_kernels(counts, what: str, kernels) -> None:
+    check(counts.get("plain_chains", 0) == 0,
+          f"{what}: {counts.get('plain_chains')} chains took the plain path")
+    for k in kernels:
+        check(counts.get(k, 0) > 0, f"{what}: kernel {k} never launched")
+    check_no_plain(counts, what)
+
+
+def engine_phase(engine_mod, main_out) -> dict:
+    """9b: the Engine on full-width qwen1.5-0.5b.  Gated in float32
+    (TT-native params with float32 cores, the F32 gates' params): every
+    completion equal to its isolated ``generate`` run, scan == boundary
+    byte for byte, every chain on a kernel, no host sync inside a chunk.
+    Then bf16 ``tt`` and ``tt-int8`` (as served) on the same stream:
+    tok/s, occupancy and the agreement of the first AGREE_REQS requests
+    with their isolated runs, reported."""
+    from repro_torch.core import tt_linear as ttl
+    model = main_out["model"]
+    stream = serve_stream(model.cfg.vocab_size)
+    m32 = _f32_model(model, DEVICE)
+    tt32, _ = f32_params(main_out["payload"], model.cfg.family)
+    iso = isolated_runs(engine_mod, m32, tt32, stream)
+    res = {"requests": len(stream),
+           "tokens": sum(r["gen"] for r in stream)}
+    runs = {}
+    for admission in ("scan", "boundary"):
+        r = engine_stream(engine_mod, m32, tt32, stream, admission,
+                          no_sync=True)
+        runs[admission] = r
+        bad = [i for i, (c, t) in enumerate(zip(r["comps"], iso))
+               if not np.array_equal(c.tokens, t)]
+        check(not bad, f"engine f32 {admission}: requests {bad} differ "
+                       f"from their isolated runs")
+        _chains_on_kernels(r["counts"], f"engine f32 {admission}",
+                           ("tt_contract_2", "tt_contract_3"))
+        res[f"f32_{admission}"] = {
+            "equal_isolated": len(stream) - len(bad), "steps": r["steps"],
+            "occupancy": r["occupancy"], "tok_per_s": r["tok_per_s"],
+            "wall_s": r["wall_s"], "chunks_no_sync": r["chunks_no_sync"],
+            "launches": r["counts"]}
+        print(f"[chip_smoke] engine f32 {admission}: {len(stream) - len(bad)}"
+              f"/{len(stream)} equal to isolated, {r['steps']} steps, "
+              f"occupancy {r['occupancy']:.3f}, {r['tok_per_s']:.1f} tok/s, "
+              f"{r['chunks_no_sync']} chunks under sync-debug 'error', "
+              f"launches {r['counts']}")
+    same = all(np.array_equal(a.tokens, b.tokens)
+               and np.array_equal(a.prompt_logits, b.prompt_logits)
+               for a, b in zip(runs["scan"]["comps"],
+                               runs["boundary"]["comps"]))
+    check(same, "engine f32: scan and boundary admission differ")
+    res["scan_equals_boundary"] = same
+    del tt32
+    torch.cuda.empty_cache()
+    params = main_out["params"]
+    for what, p in (("tt", params), ("tt-int8", ttl.quantize_tt_tree(
+            params, dtype=ttl.quant_dtype("int8")))):
+        r = engine_stream(engine_mod, model, p, stream, "scan")
+        iso = isolated_runs(engine_mod, model, p, stream[:AGREE_REQS])
+        agree = sum(np.array_equal(c.tokens, t)
+                    for c, t in zip(r["comps"], iso))
+        _chains_on_kernels(r["counts"], f"engine {what}", (
+            ("tt_contract_2", "tt_contract_3") if what == "tt"
+            else ("tt_contract_2q", "tt_contract_3q")))
+        res[what] = {"tok_per_s": r["tok_per_s"], "occupancy": r["occupancy"],
+                     "steps": r["steps"], "wall_s": r["wall_s"],
+                     "equal_isolated": f"{agree}/{AGREE_REQS}"}
+        print(f"[chip_smoke] engine {what} (bf16 activations): "
+              f"{r['tok_per_s']:.1f} tok/s, occupancy {r['occupancy']:.3f}, "
+              f"{r['steps']} steps in {r['wall_s']:.2f}s; first "
+              f"{AGREE_REQS} requests equal to isolated: {agree}/"
+              f"{AGREE_REQS} (reported)")
+    return res
+
+
+def hybrid_engine(engine_mod, out) -> dict:
+    """9c: recurrentgemma-2b (the hybrid phase's checkpoint, float32
+    TT-native params) through the Engine: staggered == isolated, gated."""
+    stream = serve_stream(out["model"].cfg.vocab_size, n=6, seed=23,
+                          plen=(3, 13), gen=(4, 13))
+    m32 = _f32_model(out["model"], DEVICE)
+    tt32, _ = f32_params(out["payload"], "hybrid")
+    iso = isolated_runs(engine_mod, m32, tt32, stream)
+    r = engine_stream(engine_mod, m32, tt32, stream, "scan")
+    bad = [i for i, (c, t) in enumerate(zip(r["comps"], iso))
+           if not np.array_equal(c.tokens, t)]
+    check(not bad, f"hybrid engine: requests {bad} differ from their "
+                   f"isolated runs")
+    _chains_on_kernels(r["counts"], "hybrid engine",
+                       ("tt_contract_2", "tt_contract_3"))
+    print(f"[chip_smoke] hybrid engine f32 ({HYBRID_LAYERS} layers): "
+          f"{len(stream) - len(bad)}/{len(stream)} equal to isolated, "
+          f"{r['steps']} steps, occupancy {r['occupancy']:.3f}, "
+          f"{r['tok_per_s']:.1f} tok/s")
+    return {"equal_isolated": len(stream) - len(bad), "steps": r["steps"],
+            "occupancy": r["occupancy"], "tok_per_s": r["tok_per_s"]}
+
+
+def _http(port, method, path, body=None, timeout=300):
+    import http.client
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    conn.request(method, path, None if body is None else json.dumps(body))
+    resp = conn.getresponse()
+    out = (resp.status, resp.read(), resp.getheader("Content-Type"))
+    conn.close()
+    return out
+
+
+def _sse_tokens(raw: bytes):
+    deltas, done = [], None
+    for block in raw.decode().strip().split("\n\n"):
+        lines = block.split("\n")
+        event = [ln[7:] for ln in lines if ln.startswith("event: ")]
+        data = [json.loads(ln[6:]) for ln in lines if ln.startswith("data: ")]
+        if event and event[0] == "done":
+            done = data[0]["tokens"]
+        elif data:
+            deltas.extend(data[0].get("tokens", []))
+    return deltas, done
+
+
+def _park(port, body):
+    import socket
+    sock = socket.create_connection(("127.0.0.1", port), timeout=120)
+    data = json.dumps(body).encode()
+    sock.sendall(b"POST /v1/generate HTTP/1.1\r\nHost: x\r\nContent-Length: "
+                 + str(len(data)).encode() + b"\r\n\r\n" + data)
+    return sock
+
+
+def server_phase(serve_mod, ckpt_dir: str) -> dict:
+    """9d: ``serve --serve --weights tt --tt-checkpoint`` (the main path's
+    checkpoint, 2 replicas x 4 slots, queue depth 6) through
+    ``make_router`` behind ``serve_in_thread`` on an ephemeral port; over
+    HTTP: 8 JSON and 2 SSE requests (their tokens equal to isolated runs),
+    a 504 on a 1 ms deadline and the next request served, a 429 past the
+    queue depth, and dropped connections that free their slots."""
+    import threading
+
+    from repro_torch.launch.server import serve_in_thread
+    args = serve_mod.parse_args(SERVE_ARGS + [
+        "--weights", "tt", "--tt-checkpoint", ckpt_dir, "--serve",
+        "--replicas", "2", "--slots", "4", "--chunk-steps", "8",
+        "--queue-depth", "6", "--prompt-len", "32", "--gen", "32",
+        "--port", "0"])
+    t0 = time.perf_counter()
+    router, model, params = serve_mod.make_router(args)
+    server, shutdown = serve_in_thread(router, port=args.port)
+    setup_s = time.perf_counter() - t0
+    res = {"setup_s": setup_s}
+    try:
+        stream = serve_stream(model.cfg.vocab_size, n=10, seed=24,
+                              gen=(4, 25))
+        replies = [None] * len(stream)
+
+        def post(i):
+            r = stream[i]
+            body = {"prompt": r["prompt"].tolist(), "gen": r["gen"],
+                    "seed": r["seed"], "temperature": r["temperature"],
+                    "top_k": r["top_k"], "stream": i >= 8}
+            replies[i] = _http(server.port, "POST", "/v1/generate", body)
+
+        t1 = time.perf_counter()
+        threads = [threading.Thread(target=post, args=(i,))
+                   for i in range(len(stream))]
+        for i, t in enumerate(threads):
+            t.start()
+            if i == 7:          # the 8 JSON requests fill the 2 x 4 slots,
+                time.sleep(0.5)  # the 2 SSE ones wait in the queues
+        for t in threads:
+            t.join()
+        http_s = time.perf_counter() - t1
+        iso = isolated_runs(serve_mod.engine_mod, model, params, stream)
+        equal = 0
+        for i, ((status, raw, ctype), want) in enumerate(zip(replies, iso)):
+            if i < 8:
+                got = (json.loads(raw)["tokens"] if status == 200 else None)
+                ok = status == 200 and got == want.tolist()
+            else:
+                deltas, done = _sse_tokens(raw)
+                ok = (status == 200 and ctype == "text/event-stream"
+                      and deltas == done == want.tolist())
+            equal += ok
+            check(ok, f"server: request {i} ({'SSE' if i >= 8 else 'JSON'}) "
+                      f"status {status}, tokens differ from the isolated run")
+        res.update(requests=len(stream), equal_isolated=equal, http_s=http_s,
+                   tokens=sum(r["gen"] for r in stream))
+        # a 504 on a deadline already past, then the server serves again
+        p = stream[0]["prompt"].tolist()
+        s504, raw, _ = _http(server.port, "POST", "/v1/generate",
+                             {"prompt": p, "gen": 24, "deadline_ms": 1})
+        s200, raw2, _ = _http(server.port, "POST", "/v1/generate",
+                              {"prompt": p, "gen": 4, "seed": 3})
+        after = (s200 == 200 and json.loads(raw2)["tokens"] == isolated_runs(
+            serve_mod.engine_mod, model, params,
+            [{"prompt": np.asarray(p, np.int32), "gen": 4, "seed": 3,
+              "temperature": 0.0, "top_k": None}])[0].tolist())
+        check(s504 == 504, f"server: deadline gave {s504}, not 504")
+        check(after, f"server: after the 504 the next request gave {s200} "
+                     f"or tokens differ")
+        # fill 2 replicas x queue depth 6 with long streams, then one more
+        socks = [_park(server.port, {"prompt": p[:3], "gen": 60,
+                                     "stream": True}) for _ in range(12)]
+        t2 = time.monotonic()
+        while (sum(r["outstanding"] for r in router.stats()["replicas"]) < 12
+               and time.monotonic() - t2 < 30):
+            time.sleep(0.01)
+        s429, _, _ = _http(server.port, "POST", "/v1/generate",
+                           {"prompt": p[:3], "gen": 4})
+        check(s429 == 429, f"server: past the queue depth gave {s429}, "
+                           f"not 429")
+        for s in socks:            # every client walks away mid-stream
+            s.close()
+        t2 = time.monotonic()
+        while time.monotonic() - t2 < 60:
+            st = router.stats()["replicas"]
+            if all(r["outstanding"] == 0 and r["busy_slots"] == 0
+                   for r in st):
+                break
+            time.sleep(0.05)
+        st = router.stats()["replicas"]
+        freed = all(r["outstanding"] == 0 and r["busy_slots"] == 0
+                    for r in st)
+        check(freed, f"server: dropped connections left {st}")
+        health = json.loads(_http(server.port, "GET", "/healthz")[1])
+        check(health["status"] == "ok", f"server: /healthz says {health}")
+        res.update(status_504=s504, after_504=after, status_429=s429,
+                   disconnect_freed=freed,
+                   replica_steps=[r["steps"] for r in st],
+                   occupancy=[r["occupancy"] for r in st])
+        print(f"[chip_smoke] server (2 replicas x 4 slots, queue depth 6, "
+              f"setup {setup_s:.1f}s): {equal}/{len(stream)} replies (8 "
+              f"JSON, 2 SSE) equal to isolated runs in {http_s:.2f}s; 504 "
+              f"{s504}, then {s200}; 429 {s429}; 12 dropped streams freed "
+              f"their slots: {freed}; replica steps "
+              f"{[r['steps'] for r in st]}")
+    finally:
+        shutdown()
+    return res
+
+
 ENGINE_ROWS = [
     ("panel_factor", ("panel",), "householder/csrc/householder.cu",
      "householder/kernel.py:99", ("panel_factor",)),
@@ -2306,7 +2763,8 @@ def run_phases(t_start, work, children, ops, cases, fa_ops,
                serve_mod) -> int:
     """Every phase after the build.  While ``children`` compress
     recurrentgemma-2b and qwen3-8b, the main path, the checkpoint, the
-    float32 gates, the engine's compressions and qwen3-8b's serve run
+    float32 gates, the engine's compressions, the serving phase and
+    qwen3-8b's serve run
     (their seconds and tok/s taken beside the children's work); the timed
     kernel checks, the prefill throughputs and the phases after them run
     once both children have ended."""
@@ -2332,6 +2790,19 @@ def run_phases(t_start, work, children, ops, cases, fa_ops,
     svd_d = blocked_svd_check(full["wq"])
     torch.cuda.empty_cache()
     phase_s["TTD engine"] = time.perf_counter() - t0
+
+    # serving (9a, 9b, 9d; 9c in the hybrid phase), while the children
+    # compress: its gates are exact, and its tok/s are taken beside them
+    serving, serving_s = {}, {}
+    for name, fn in (
+            ("sampler", sampler_phase),
+            ("engine", lambda: engine_phase(serve_mod.engine_mod, main_out)),
+            ("server", lambda: server_phase(serve_mod, ckpt_dir))):
+        t0 = time.perf_counter()
+        serving[name] = fn()
+        serving_s[name] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    phase_s["serving"] = sum(serving_s.values())
 
     t0 = time.perf_counter()
     compressed = {BIG_ARCH: finish_compression(BIG_ARCH, children[BIG_ARCH])}
@@ -2372,14 +2843,23 @@ def run_phases(t_start, work, children, ops, cases, fa_ops,
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
+    serving_before_hybrid = phase_s["serving"]
     served = hybrid_serve(serve_mod, compressed["recurrentgemma-2b"])
     hrec = stored_phase(ops, cases, chain_shapes(served["out"]["info"]),
                         "recurrentgemma-2b", batch_sizes=(1, 4, 8192))
     hybrid = hybrid_prefill(served)
+    t1 = time.perf_counter()
+    serving["hybrid_engine"] = hybrid_engine(serve_mod.engine_mod,
+                                             served["out"])
+    serving_s["hybrid_engine"] = time.perf_counter() - t1
+    phase_s["serving"] += serving_s["hybrid_engine"]
+    print(f"[chip_smoke] serving phase {phase_s['serving']:.1f}s "
+          f"({json.dumps(serving_s)})")
     del served["out"]
     torch.cuda.empty_cache()
     frec = flash_phase()
-    phase_s["hybrid"] = time.perf_counter() - t0
+    phase_s["hybrid"] = time.perf_counter() - t0 - (
+        phase_s["serving"] - serving_before_hybrid)
     print(f"[chip_smoke] hybrid phase {phase_s['hybrid']:.1f}s")
 
     t0 = time.perf_counter()
@@ -2553,6 +3033,7 @@ def run_phases(t_start, work, children, ops, cases, fa_ops,
                        "graph_ms", "bound_ms", "plain_ms", "library_ms")}
                        for k, v in big[c].items()}
                       for c in ("chains", "chains_prefill_rows")}}}))
+    print(f"[chip_smoke] serving summary: " + json.dumps(serving))
     print(f"[chip_smoke] phase seconds: {json.dumps(phase_s)}")
     print(f"[chip_smoke] total {time.perf_counter() - t_start:.1f}s")
     if FAILURES:

@@ -39,6 +39,7 @@ from __future__ import annotations
 import collections
 import ctypes
 import functools
+import threading
 from pathlib import Path
 from typing import Optional, Sequence
 
@@ -59,6 +60,9 @@ BATCHED = tuple(f"{k}_batched" for k in KERNELS)
 BANK_ROUTES = ("mma", "fma")
 
 launches: collections.Counter = collections.Counter()
+# the launch counts and the ticket counters are shared by every thread (the
+# router's replicas step their engines from threads of their own)
+_LOCK = threading.Lock()
 
 # enough blocks in phase A to cover the H100's 132 SMs about twice
 _TARGET_BLOCKS = 264
@@ -119,18 +123,19 @@ def _counters(device, stream: int, n: int) -> torch.Tensor:
     grown buffer's predecessor stays allocated, since a graph captured
     earlier may still use it.  A graph uses the counters of the stream it
     was captured on: do not replay it while calls run on that stream."""
-    buf = _COUNTERS.get((device, stream))
-    if buf is None or buf.numel() < n:
-        if torch.cuda.is_current_stream_capturing():
-            raise RuntimeError(
-                "a TT-chain call needs new ticket counters while a CUDA "
-                "graph is being captured: run the same call once on the "
-                "capture stream before capturing")
-        if buf is not None:
-            _RETIRED.append(buf)
-        buf = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
-        _COUNTERS[(device, stream)] = buf
-    return buf
+    with _LOCK:
+        buf = _COUNTERS.get((device, stream))
+        if buf is None or buf.numel() < n:
+            if torch.cuda.is_current_stream_capturing():
+                raise RuntimeError(
+                    "a TT-chain call needs new ticket counters while a CUDA "
+                    "graph is being captured: run the same call once on the "
+                    "capture stream before capturing")
+            if buf is not None:
+                _RETIRED.append(buf)
+            buf = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
+            _COUNTERS[(device, stream)] = buf
+        return buf
 
 
 def chunk_plan(n: int, other_blocks: int, min_chunk: int = 1):
@@ -384,8 +389,9 @@ def _launch(name: str, x, lead, lead_scale, g0, g0_es: int, tail,
                   _ptr(s2), sp, sp + 4 * call.n_part, _ptr(cnt), y.data_ptr())
     code = call.fn(p, call.dims, stream)
     _raise_on(code, name)
-    for k in call.keys:
-        launches[k] += 1
+    with _LOCK:
+        for k in call.keys:
+            launches[k] += 1
     return y
 
 
@@ -414,7 +420,8 @@ def _dispatch(x, lead, lead_scale, cores, scales, split, experts):
     depth = len(cores)
     plain = tt_chain_experts_ref if experts else tt_chain_ref
     if not _fused(depth, split):
-        launches["plain_chains"] += 1
+        with _LOCK:
+            launches["plain_chains"] += 1
         return plain(x, lead, lead_scale, cores, scales, split).to(x.dtype)
     s = list(scales) if scales is not None else [None] * depth
     args = (_name(depth, scales is not None), x, lead, lead_scale, cores[0],

@@ -1,7 +1,23 @@
-"""Serving driver: one batch of greedy requests through ``engine.generate``.
+"""Serving driver: one batch through ``engine.generate``, or the HTTP
+server.
 
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch qwen1.5-0.5b --weights tt --batch 4 --prompt-len 16 --gen 16
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch qwen1.5-0.5b --weights tt --tt-checkpoint DIR --serve \
+        --replicas 2 --slots 4 --port 8000
+
+Two modes share one model setup (``--weights``/``--tt-*`` work in both):
+
+* **batch mode** (default) — one uniform batch, greedy or sampled
+  (``--temperature``, ``--top-k``; row r samples under
+  ``fold_in(PRNGKey(--seed), r)``), with timing and the TT-vs-dense verify;
+* **server mode** (``--serve``) — N ``Engine`` replicas
+  (``--replicas``/``--slots``/``--chunk-steps``/``--admission``) sharing
+  one params tree behind the router (``--queue-depth``, ``--deadline-ms``,
+  ``--watchdog-ms``) and the asyncio HTTP front door (``--host``/
+  ``--port``): ``POST /v1/generate``, ``GET /healthz``, ``GET /stats``.
+  Requests may not be longer than ``--prompt-len`` + ``--gen`` positions.
 
 ``--arch`` is any ported config (``repro_torch.configs.NAME_TO_MODULE``:
 qwen1.5-0.5b of the dense family, olmoe-1b-7b of the MoE family,
@@ -192,6 +208,29 @@ def _tt_setup(model, args, cfg, compressed=None):
     return params_tt, payload, info, params
 
 
+def _setup(args, compressed=None):
+    """The model on its device and its params: dense, or TT-native from a
+    compression here or ``--tt-checkpoint`` (``_tt_setup``).  Returns (cfg,
+    model, params, payload, info, dense params)."""
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    if args.layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=args.layers)
+    model = build(cfg, device=args.device)
+    if args.weights == "dense":
+        params = model.init(args.seed)
+        return cfg, model, params, None, {}, params
+    params, payload, info, dense = _tt_setup(model, args, cfg, compressed)
+    how = (f"loaded from {args.tt_checkpoint} in {info['load_s']:.3f}s"
+           if args.tt_checkpoint else
+           f"compressed on {model.device} in {info['compress_s']:.3f}s")
+    print(f"[serve] {how}; TT ranks "
+          + ", ".join(f"{k} {v}" for k, v in info["ranks"].items()))
+    print(f"[serve] TT-native mode: {info['line']}")
+    return cfg, model, params, payload, info, dense
+
+
 def serve(args, compressed=None) -> dict:
     """Run one batch; returns tok/s, the tokens, the run, the verify
     numbers and the setup info, plus the model, the served params, the
@@ -199,39 +238,25 @@ def serve(args, compressed=None) -> dict:
     checks.  ``compressed``: ``info["compressed"]`` of an earlier run with
     the same ``--arch``, ``--seed``, ``--tt-eps`` and ``--tt-alpha``, whose
     compression this run reuses (``compress_s`` is then that run's)."""
-    cfg = get_config(args.arch)
-    if args.reduced:
-        cfg = cfg.reduced()
-    if args.layers is not None:
-        cfg = dataclasses.replace(cfg, num_layers=args.layers)
-    model = build(cfg, device=args.device)
+    cfg, model, params, payload, info, dense = _setup(args, compressed)
     rng = np.random.default_rng(args.seed)
     b = args.batch
     max_len = args.prompt_len + args.gen
 
-    payload, info = None, {}
-    if args.weights == "dense":
-        params = dense = model.init(args.seed)
-    else:
-        params, payload, info, dense = _tt_setup(model, args, cfg,
-                                                 compressed)
-        how = (f"loaded from {args.tt_checkpoint} in {info['load_s']:.3f}s"
-               if args.tt_checkpoint else
-               f"compressed on {model.device} in {info['compress_s']:.3f}s")
-        print(f"[serve] {how}; TT ranks "
-              + ", ".join(f"{k} {v}" for k, v in info["ranks"].items()))
-        print(f"[serve] TT-native mode: {info['line']}")
-
     prompts = rng.integers(0, cfg.vocab_size, size=(b, args.prompt_len),
                            dtype=np.int32)
+    sample_kw = dict(temperature=args.temperature, top_k=args.top_k,
+                     seed=args.seed)
     run = engine_mod.generate(model, params, prompts, args.gen,
-                              max_len=max_len, driver=args.driver)
+                              max_len=max_len, driver=args.driver,
+                              **sample_kw)
     verify = None
     if args.weights != "dense" and args.verify:
         # reconstruct-then-serve oracle on the same payload
         params_rx = _comp.TTCompressor().decompress(payload)
         oracle = engine_mod.generate(model, params_rx, prompts, args.gen,
-                                     max_len=max_len, driver=args.driver)
+                                     max_len=max_len, driver=args.driver,
+                                     **sample_kw)
         d, scale, agree = model_common.logit_parity(
             run["prompt_logits"], oracle["prompt_logits"])
         verify = {"max_diff": d, "scale": scale, "agree": agree,
@@ -265,6 +290,43 @@ def serve(args, compressed=None) -> dict:
             "prompts": prompts}
 
 
+def make_router(args):
+    """Server mode's stack below the HTTP front door: the model on its
+    device, its params (dense, compressed here or loaded from
+    ``--tt-checkpoint``) and ``--replicas`` Engines sharing that one params
+    tree (each replica adds a cache pool, not a copy of the weights),
+    behind a Router.  Returns (router, model, params)."""
+    from repro_torch.launch.router import Router
+
+    _, model, params, _, _, _ = _setup(args)
+    max_len = args.prompt_len + args.gen
+    engines = [
+        engine_mod.Engine(
+            model, params, slots=args.slots, max_len=max_len,
+            chunk_steps=args.chunk_steps, temperature=args.temperature,
+            top_k=args.top_k, seed=args.seed, admission=args.admission)
+        for _ in range(args.replicas)]
+    watchdog = None if args.watchdog_ms is None else args.watchdog_ms / 1e3
+    router = Router(engines, queue_depth=args.queue_depth,
+                    watchdog_s=watchdog)
+    print(f"[serve] {args.replicas} replica(s) x {args.slots} slots on "
+          f"{model.device}, admission={engines[0].admission}, "
+          f"queue_depth={args.queue_depth}, max_len={max_len}"
+          + (f", watchdog={watchdog:g}s" if watchdog else ""))
+    return router, model, params
+
+
+def serve_http(args) -> None:
+    """Server mode: ``make_router`` behind the HTTP front door, until
+    interrupted."""
+    from repro_torch.launch.server import run_server
+
+    router, _, _ = make_router(args)
+    deadline = None if args.deadline_ms is None else args.deadline_ms / 1e3
+    run_server(router, host=args.host, port=args.port,
+               default_deadline=deadline)
+
+
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", required=True)
@@ -276,7 +338,14 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen", type=int, default=16)
     ap.add_argument("--seed", type=int, default=0,
-                    help="weights and prompts seed")
+                    help="weights/prompts seed AND the sampling seed (row r "
+                         "samples under fold_in(PRNGKey(seed), r))")
+    ap.add_argument("--temperature", type=float, default=0.0,
+                    help="sampling temperature; 0 (default) is the greedy "
+                         "argmax (in server mode: the requests' default)")
+    ap.add_argument("--top-k", type=int, default=None,
+                    help="keep only the k highest logits before sampling "
+                         "(matters with --temperature > 0)")
     ap.add_argument("--device", type=str, default=None,
                     help="torch device (default: the first CUDA card; "
                          "'cpu' runs the plain PyTorch paths)")
@@ -303,11 +372,46 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                     help="cross-check against reconstruct-then-serve "
                          "(default on)")
     ap.add_argument("--no-verify", dest="verify", action="store_false")
+    ap.add_argument("--serve", action="store_true",
+                    help="server mode: run the HTTP front door instead of "
+                         "one batch (POST /v1/generate)")
+    ap.add_argument("--host", type=str, default="127.0.0.1")
+    ap.add_argument("--port", type=int, default=8000,
+                    help="TCP port (0 = ephemeral, printed at startup)")
+    ap.add_argument("--replicas", type=int, default=1,
+                    help="engine replicas behind the router (weights "
+                         "shared; each replica adds one cache pool and a "
+                         "worker thread)")
+    ap.add_argument("--slots", type=int, default=4,
+                    help="concurrent requests per replica (cache pool rows)")
+    ap.add_argument("--chunk-steps", type=int, default=8,
+                    help="decode steps per scheduling chunk")
+    ap.add_argument("--queue-depth", type=int, default=16,
+                    help="max outstanding requests per replica before "
+                         "submissions get 429")
+    ap.add_argument("--deadline-ms", type=float, default=None,
+                    help="default per-request deadline; an expired request "
+                         "is cancelled (504) and its slot freed; requests "
+                         "may set their own 'deadline_ms'")
+    ap.add_argument("--watchdog-ms", type=float, default=None,
+                    help="a replica whose worker goes stale longer than "
+                         "this while holding work is marked suspect (no new "
+                         "placements) until it recovers; a dead worker is "
+                         "always failed over and restarted")
+    ap.add_argument("--admission", choices=engine_mod.ADMISSION_MODES,
+                    default="auto",
+                    help="slot admission: 'scan' admits inside a chunk from "
+                         "a device queue, 'boundary' between chunks; "
+                         "'auto' is 'scan'")
     return ap.parse_args(argv)
 
 
 def main(argv: Optional[Sequence[str]] = None) -> None:
-    serve(parse_args(argv))
+    args = parse_args(argv)
+    if args.serve:
+        serve_http(args)
+    else:
+        serve(args)
 
 
 if __name__ == "__main__":

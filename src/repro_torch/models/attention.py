@@ -76,18 +76,33 @@ def qkv_project(x, p: AttnParams, cfg, positions):
     return q, k, v
 
 
+# With one query position (decode) the products below run one batch row at
+# a time: cuBLAS picks its batched-product kernel by the batch count (and
+# einsum its layout), so a batched call rounds a row otherwise than a call
+# on that row alone, and a request's attention must not depend on the
+# requests beside it (``common.unembed`` does the same for the logits).
+
 def _gqa_scores(q, k):
     """(B,S,Hq,D) x (B,T,Hkv,D) -> (B,Hkv,G,S,T) without repeating KV."""
     b, s, hq, d = q.shape
     hkv = k.shape[2]
-    qg = q.reshape(b, s, hkv, hq // hkv, d)
-    return torch.einsum("bshgd,bthd->bhgst", qg.float(), k.float())
+    qg = q.reshape(b, s, hkv, hq // hkv, d).float()
+    if s == 1:
+        kf = k.float()
+        return torch.stack([torch.matmul(qg[i, 0], kf[i].permute(1, 2, 0))
+                            for i in range(b)])[:, :, :, None, :]
+    return torch.einsum("bshgd,bthd->bhgst", qg, k.float())
 
 
 def _gqa_out(p, v):
     """(B,Hkv,G,S,T) x (B,T,Hkv,D) -> (B,S,Hq,D)."""
     b, hkv, g, s, t = p.shape
-    out = torch.einsum("bhgst,bthd->bshgd", p, v.float())
+    if s == 1:
+        vf = v.float()
+        out = torch.stack([torch.matmul(p[i, :, :, 0], vf[i].transpose(0, 1))
+                           for i in range(b)])[:, None]
+    else:
+        out = torch.einsum("bhgst,bthd->bshgd", p, v.float())
     return out.reshape(b, s, hkv * g, -1)
 
 
@@ -133,8 +148,7 @@ def _attend_block(qblk, k, v, q_pos, window, is_global, scale):
         mask = mask & (in_window | torch.as_tensor(is_global,
                                                    device=k.device))
     scores = _gqa_scores(qblk, k) * scale
-    scores = torch.where(mask, scores, torch.tensor(NEG_INF,
-                                                     device=k.device))
+    scores = torch.where(mask, scores, NEG_INF)
     return _gqa_out(torch.softmax(scores, dim=-1), v).to(qblk.dtype)
 
 
@@ -151,8 +165,7 @@ def decode_attend(q, k_cache, v_cache, pos, cfg,
     if window is not None:
         valid = valid & ((k_pos[None, :] > posc - window) | bool(is_global))
     scores = _gqa_scores(q, k_cache) * scale             # (B,Hkv,G,1,T)
-    scores = torch.where(valid[:, None, None, None], scores,
-                         torch.tensor(NEG_INF, device=q.device))
+    scores = torch.where(valid[:, None, None, None], scores, NEG_INF)
     m = scores.amax(dim=-1, keepdim=True)
     e = torch.exp(scores - m)
     num = _gqa_out(e, v_cache)                           # (B,1,Hq,Dh) f32

@@ -309,7 +309,7 @@ def _attn_step(x, lp: AttnLayerParams, cfg, k_c, v_c, pos):
     valid = age <= torch.clamp(pos.reshape(-1, 1), max=win - 1)
     scores = attn._gqa_scores(q, k_c) * q.shape[-1] ** -0.5
     scores = torch.where(valid[:, None, None, None, :], scores,
-                         torch.tensor(attn.NEG_INF, device=x.device))
+                         attn.NEG_INF)
     o = attn._gqa_out(torch.softmax(scores, dim=-1), v_c).to(x.dtype)
     x = x + common.dense_apply(o, lp.attn.wo, in_ndim=2)
     hn = common.rms_norm(x, lp.ln2, cfg.norm_eps)

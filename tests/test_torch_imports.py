@@ -37,7 +37,8 @@ def test_port_files_exist():
             "engine_cases.py", "rglru.py", "steps.py",
             "recurrentgemma_2b.py", "olmoe_1b_7b.py", "mlp.py",
             "checkpoint.py", "qwen3_8b.py", "qwen3_32b.py",
-            "dbrx_132b.py", "flash_f32_drift.py"} <= names
+            "dbrx_132b.py", "flash_f32_drift.py", "prng.py", "router.py",
+            "server.py", "fault_tolerance.py"} <= names
     assert (REPO / "src" / "repro_torch" / "checkpoint" / "checkpoint.py"
             ).is_file()
     kernels = REPO / "src" / "repro_torch" / "kernels"

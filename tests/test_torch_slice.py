@@ -100,10 +100,17 @@ def test_serve_entry_point_on_cpu(weights):
 
 
 def test_generate_rejects_sampling_and_unknown_driver():
+    """Sampling is ported: invalid sampling params (a negative temperature,
+    top_k below 1) and an unknown driver raise; a valid draw runs."""
     model = build(get_config(ARCH).reduced(), device="cpu")
     params = model.init(0)
     prompts = np.zeros((1, 3), np.int32)
-    with pytest.raises(NotImplementedError, match="threefry"):
-        engine.generate(model, params, prompts, 2, temperature=0.7)
+    with pytest.raises(ValueError, match="temperature"):
+        engine.generate(model, params, prompts, 2, temperature=-0.7)
+    with pytest.raises(ValueError, match="top_k"):
+        engine.generate(model, params, prompts, 2, temperature=0.7, top_k=0)
     with pytest.raises(ValueError):
         engine.generate(model, params, prompts, 2, driver="bogus")
+    out = engine.generate(model, params, prompts, 2, temperature=0.7,
+                          top_k=5, seed=1)
+    assert out["gen"].shape == (1, 2)
