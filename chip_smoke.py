@@ -182,8 +182,10 @@
    7a-b run after 3, 7c after 6c, 7d last.
 8. Prints each phase's seconds, the script's total, one ``{"kernels":
    [...]}`` JSON line (the twelve other ported kernels, one entry per
-   flash route and one per batched chain route, the float32 banks' FFMA route too; the panel rows
-   with their main-path route counts),
+   flash route and one per batched chain route, the float32 banks' FFMA
+   route too; the panel rows with their main-path route counts; the
+   chains and both flash routes again at the encoder-decoder's shapes,
+   ``*_encdec``, with that phase's launches),
    the card line again, and as the last line ``{"ok": true, "device":
    {...}}``.
 
@@ -219,9 +221,45 @@
       1 ms deadline and then a served request, a 429 past the queue depth,
       and 12 dropped streams whose slots come back.
 
+10. Encoder-decoder phase (``models/encdec.py``, ``Engine`` admission
+   with encoder memory), last, from a third child compression
+   (``serve --arch seamless-m4t-large-v2 --weights tt
+   --save-tt-checkpoint``, started with the other two): full-width
+   seamless-m4t-large-v2 (``ENCDEC_LAYERS`` = 12 encoder and 12 decoder
+   layers of 24 each, the cut: the script's time; d_model 1024, 16x64 heads, d_ff 8192 relu, vocab 256,206,
+   tied, 1,024 memory rows), random weights from seed 0 with the spectral
+   decay, eps 0.2:
+   a. ``serve --weights tt --tt-checkpoint`` (B 4, prompt 16, gen 16, a
+      source of 1,024 tokens a row): every leaf loaded equal bit for bit
+      to the payload the child compressed (sha256 of each leaf's bytes),
+      a flipped byte refused, chain kernels launched with no plain call;
+      the bf16 verify reported;
+   b. prefill at B = 2 with 1,024 frames and 1,024 tokens, bf16 TT-native
+      under both impls: tok/s, the decoder's flash launches (exactly one
+      a decoder layer under ``"pallas"``, on the mma route; none under
+      ``"xla"``, none in the encoder); float32 (float32 cores): TT-native
+      pallas vs xla and TT-native vs reconstruct-then-prefill within
+      F32_TOL of scale (every flash launch on the 3xTF32 route), eval at
+      B = 1 under both impls within 1e-5 relative;
+   c. float32 ``populate_memory`` of 4 sources against ``admit_memory``
+      slot by slot (F32_TOL of scale; bit-equality reported), and a slot
+      with a source decoding otherwise than one with none;
+   d. the Engine, 4 slots, boundary admission (the source encoded at
+      admission), 8 requests with sources of 16-256 tokens and a
+      token-only one that recycles a slot: float32 tokens equal to their
+      isolated ``generate(src_tokens=...)`` runs' bit for bit, prompt
+      logits within F32_TOL of scale (bit-equality reported), chains on
+      their kernels, no host sync inside a chunk, scan admission refused;
+      bf16 ``tt`` reported;
+   e. the flash kernel at the decoder's shape (2, 1,024, 16, 64), both
+      routes, against its plain version (and float64, ``mha_tiled``),
+      timed beside SDPA and its bound; the path's stored chains at B in
+      {1, 4, 2,048} (as 3.).
+
 Cuts of depth (every width as configured): qwen3-8b runs 8 of its 36
-layers; recurrentgemma-2b ``HYBRID_LAYERS`` of its 26.  Nothing else is
-cut.
+layers; recurrentgemma-2b ``HYBRID_LAYERS`` of its 26;
+seamless-m4t-large-v2 ``ENCDEC_LAYERS`` = 12 of its 24 encoder and 24
+decoder layers.  Nothing else is cut.
 
 Exits non-zero without a CUDA card, and on any failed phase.
 """
@@ -363,12 +401,14 @@ def compress_child(ckpt: str, report: str, serve_args) -> int:
     with PhaseTimers() as timers:
         out = serve_mod.serve(args)
     torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
     info = out["info"]
     ex = info["exec_stats"]
     rep = {"compress_s": info["compress_s"],
            "breakdown": timers.breakdown(info["compress_s"]),
-           "peak_bytes": torch.cuda.max_memory_allocated(),
+           "peak_bytes": peak,
            "counts": read_counts(),
+           "leaf_sha": leaf_digests(out["payload"]),
            "ranks": {k: list(v) for k, v in info["ranks"].items()},
            "payload_ratio": info["payload_ratio"],
            "plan": [ex.bucket_launches, ex.serial_params],
@@ -377,6 +417,30 @@ def compress_child(ckpt: str, report: str, serve_args) -> int:
     with open(report, "w") as f:
         json.dump(rep, f)
     return 0
+
+
+def leaf_digests(payload) -> dict:
+    """{leaf path: sha256 of its kind, shape, dtype, ranks and the bytes of
+    its cores (or raw tensor)}: a payload in memory and the same payload
+    loaded from its checkpoint give equal digests when every leaf is equal
+    bit for bit."""
+    import hashlib
+
+    from repro_torch import tree
+    from repro_torch.core import compression as comp
+    out = {}
+    for path, c in tree.leaves_with_paths(payload,
+                                          is_leaf=comp.is_compressed_param):
+        h = hashlib.sha256(repr((c.kind, tuple(c.orig_shape),
+                                 str(c.orig_dtype),
+                                 c.tt.ranks if c.kind == "tt" else None)
+                                ).encode())
+        for t in (c.tt.cores if c.kind == "tt" else [c.raw]):
+            h.update(str(t.dtype).encode())
+            h.update(t.detach().contiguous().view(torch.uint8).cpu()
+                     .numpy().tobytes())
+        out[path] = h.hexdigest()
+    return out
 
 
 def decayed_params(model, seed: int = 0):
@@ -411,12 +475,13 @@ def _on(device, params):
 def _f32_model(model, device):
     """The model in float32 with a float32 decode cache: no bf16 rounding
     of activations, so two runs differ only by float32 summation order."""
-    from repro_torch.models import rglru, transformer
+    from repro_torch.models import encdec, rglru, transformer
     from repro_torch.models.registry import build
     cfg32 = dataclasses.replace(model.cfg, dtype="float32")
     init_cache = {"dense": transformer.init_cache,
                   "moe": transformer.init_cache,
-                  "hybrid": rglru.init_cache}[cfg32.family]
+                  "hybrid": rglru.init_cache,
+                  "encdec": encdec.init_cache}[cfg32.family]
     return dataclasses.replace(
         build(cfg32, device=device),
         init_cache=lambda b, n: init_cache(cfg32, b, n, device,
@@ -1559,6 +1624,37 @@ def hybrid_prefill(served: dict) -> dict:
     return res
 
 
+def flash_times(case, dtype) -> dict:
+    """Times of one flash case on the route of ``dtype`` (CUDA-event median
+    and graph replays), its plain version and one SDPA call, and the
+    route's bound; ``"line"`` prints them."""
+    fast = dtype == torch.bfloat16
+    ms = time_ms(case.kernel, 20 if fast else 5)
+    g_ms = graph_ms(case.kernel, 10 if fast else 5, 5)
+    p_ms = time_ms(case.plain, 3)
+    l_ms = time_ms(case.library, 20 if fast else 5)
+    # the route as built: float32 takes three TF32 products per float32
+    # product; its FFMA bound is printed beside it
+    flops, rate = ((case.flops, BF16_FLOPS) if fast
+                   else (3 * case.flops, TF32_FLOPS))
+    by_ops = flops / rate >= case.nbytes / HBM_BYTES_PER_S
+    bound = max(case.nbytes / HBM_BYTES_PER_S, flops / rate) * 1e3
+    r = {"ms": ms, "graph_ms": g_ms, "plain_ms": p_ms, "library_ms": l_ms,
+         "bound_ms": bound, "bound_by": "operations" if by_ops else "bytes"}
+    extra = ""
+    if not fast:
+        r["bound_ffma_ms"] = max(case.nbytes / HBM_BYTES_PER_S,
+                                 case.flops / F32_FLOPS) * 1e3
+        extra = (f"; FFMA bound {r['bound_ffma_ms']:.5f} ms "
+                 f"({r['bound_ffma_ms'] / ms:.1%})")
+    r["line"] = (f"kernel {ms:.4f} ms (graph {g_ms:.4f} ms), plain "
+                 f"{p_ms:.4f} ms, sdpa {l_ms:.4f} ms, bound {bound:.5f} ms "
+                 f"({flops:.4e} FLOPs at {rate / 1e12:.0f} TFLOP/s, "
+                 f"{case.nbytes:,} bytes; {bound / ms:.1%} of the bound)"
+                 f"{extra}")
+    return r
+
+
 def flash_phase() -> dict:
     """The flash kernel against its plain version at every shape of
     ``kernels/flash_attention/cases.py`` (float32 also against ``mha_ref``
@@ -1621,32 +1717,8 @@ def flash_phase() -> dict:
             if shape != fc.PATH_SHAPE:
                 print(line)
                 continue
-            fast = dtype == torch.bfloat16
-            ms = time_ms(case.kernel, 20 if fast else 5)
-            g_ms = graph_ms(case.kernel, 10 if fast else 5, 5)
-            p_ms = time_ms(case.plain, 3)
-            l_ms = time_ms(case.library, 20 if fast else 5)
-            # the route as built: float32 takes three TF32 products per
-            # float32 product; its FFMA bound is printed beside it
-            flops, rate = ((case.flops, BF16_FLOPS) if fast
-                           else (3 * case.flops, TF32_FLOPS))
-            by_ops = flops / rate >= case.nbytes / HBM_BYTES_PER_S
-            bound = max(case.nbytes / HBM_BYTES_PER_S, flops / rate) * 1e3
-            r.update(ms=ms, graph_ms=g_ms, plain_ms=p_ms, library_ms=l_ms,
-                     bound_ms=bound,
-                     bound_by="operations" if by_ops else "bytes")
-            extra = ""
-            if not fast:
-                r["bound_ffma_ms"] = max(case.nbytes / HBM_BYTES_PER_S,
-                                         case.flops / F32_FLOPS) * 1e3
-                extra = (f"; FFMA bound {r['bound_ffma_ms']:.5f} ms "
-                         f"({r['bound_ffma_ms'] / ms:.1%})")
-            print(f"{line}; kernel {ms:.4f} ms (graph {g_ms:.4f} ms), "
-                  f"plain {p_ms:.4f} ms, sdpa "
-                  f"{l_ms:.4f} ms, bound {bound:.5f} ms ({flops:.4e} "
-                  f"FLOPs at {rate / 1e12:.0f} TFLOP/s, "
-                  f"{case.nbytes:,} bytes; {bound / ms:.1%} of the bound)"
-                  f"{extra}")
+            r.update(flash_times(case, dtype))
+            print(f"{line}; {r.pop('line')}")
     usage = kbuild.ptxas_usage(fa.SOURCE)
     for dtype, kernel in ((torch.bfloat16, "flash_mma_kernel"),
                           (torch.float32, "flash_tf32x3_kernel")):
@@ -2421,12 +2493,14 @@ class _NoSyncSteps:
 def engine_stream(engine_mod, model, params, stream, admission: str,
                   no_sync: bool = False) -> dict:
     """One ``Engine`` (SERVE_SLOTS slots, SERVE_CHUNK steps a chunk) over
-    ``stream``; launch counts over exactly its run."""
+    ``stream`` (a request's ``"src"``, when it has one, is its encoder
+    input); launch counts over exactly its run."""
     eng = engine_mod.Engine(model, params, slots=SERVE_SLOTS,
                             max_len=SERVE_MAX_LEN, chunk_steps=SERVE_CHUNK,
                             admission=admission)
     uids = [eng.submit(r["prompt"], r["gen"], seed=r["seed"],
-                       temperature=r["temperature"], top_k=r["top_k"])
+                       temperature=r["temperature"], top_k=r["top_k"],
+                       src_tokens=r.get("src"))
             for r in stream]
     reset_counts()
     torch.cuda.synchronize()
@@ -2693,6 +2767,365 @@ def server_phase(serve_mod, ckpt_dir: str) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# Encoder-decoder phase: full-width seamless-m4t-large-v2
+# ---------------------------------------------------------------------------
+
+ENCDEC_ARCH = "seamless-m4t-large-v2"
+ENCDEC_LAYERS = 12       # encoder and decoder layers served, of 24 each
+ENCDEC_SERVE_ARGS = ["--arch", ENCDEC_ARCH, "--layers", str(ENCDEC_LAYERS),
+                     "--batch", "4", "--prompt-len", "16", "--gen", "16",
+                     "--seed", "0", "--tt-eps", "0.2"]
+ENCDEC_B, ENCDEC_S = 2, 1024     # prefill: 1,024 frames and 1,024 tokens
+ENCDEC_SRC = (16, 257)           # Engine requests' source lengths
+
+
+def encdec_serve(serve_mod, rep: dict) -> dict:
+    """10a: ``serve --weights tt --tt-checkpoint`` from the child's
+    checkpoint (no compression): every leaf loaded equal bit for bit to
+    the payload the child compressed (``leaf_digests``), a flipped byte
+    refused, chain kernels launched with no plain call, the sources
+    encoded; the bf16 verify against reconstruct-then-serve reported."""
+    from repro_torch.checkpoint import checkpoint as ckpt
+    args = serve_mod.parse_args(ENCDEC_SERVE_ARGS + [
+        "--weights", "tt", "--tt-checkpoint", rep["ckpt"]])
+    out, secs, counts = _counted(lambda: serve_mod.serve(args))
+    _chains_on_kernels(counts, "encdec serve",
+                       ("tt_contract_2", "tt_contract_3"))
+    check(not counts.get("frob_truncate")
+          and out["info"]["compress_s"] is None,
+          f"encdec serve: compressed ({counts})")
+    digests = leaf_digests(out["payload"])
+    same = bool(digests) and digests == rep.get("leaf_sha")
+    check(same, "encdec checkpoint: loaded leaves differ from the payload "
+                "the child compressed")
+    flipped = rep["ckpt"] + "-flipped"
+    shutil.copytree(rep["ckpt"], flipped)
+    flip_byte(flipped)
+    try:
+        ckpt.load_tt_payload(flipped, like=out["payload"], device=DEVICE)
+        raised = "nothing"
+    except ckpt.CheckpointCorrupt as e:
+        raised = f"CheckpointCorrupt: {e}"
+    shutil.rmtree(flipped)
+    check(raised.startswith("CheckpointCorrupt"),
+          f"encdec checkpoint: a flipped byte raised {raised}")
+    cfg, info = out["model"].cfg, out["info"]
+    check(out["src"].shape == (4, cfg.frontend_len)
+          and out["generated"].shape == (4, 16),
+          f"encdec serve: sources {out['src'].shape}, tokens "
+          f"{out['generated'].shape}")
+    res = {"serve_s": secs, "tok_per_s": out["tok_per_s"],
+           "checkpoint_equal": same, "leaves": len(digests),
+           "flipped": raised[:90], "verify": out["verify"],
+           "launches": counts, "dense_bytes": info["dense_bytes"],
+           "tt_bytes": info["tt_bytes"], "payload_ratio": info["payload_ratio"],
+           "layers": [cfg.enc_layers, cfg.num_layers]}
+    print(f"[chip_smoke] {ENCDEC_ARCH} ({cfg.enc_layers} + {cfg.num_layers} "
+          f"layers) served from its checkpoint in {secs:.1f}s: {len(digests)} "
+          f"leaves equal to the child's payload: {same}; flipped byte -> "
+          f"{raised[:60]}; decode {out['tok_per_s']:.1f} tok/s; bf16 verify "
+          f"(reported) {json.dumps(out['verify'])}; launches {counts}")
+    print(f"[chip_smoke] {ENCDEC_ARCH} ranks: " + json.dumps(
+        {k: list(v) for k, v in info["ranks"].items()}))
+    print(f"[chip_smoke] {ENCDEC_ARCH} bytes: {info['line']}")
+    return {"out": out, "summary": res}
+
+
+def _encdec_batch(cfg, b: int, s: int, seed: int = 2) -> dict:
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    frames = torch.randn((b, cfg.frontend_len, cfg.d_model), generator=g,
+                         device=DEVICE)
+    toks = _tokens(cfg.vocab_size, b, s, seed=seed)
+    return {"frames": frames, "tokens": toks,
+            "labels": torch.roll(toks, -1, 1)}
+
+
+def _flash_counts(counts, what: str, route, layers: int) -> None:
+    """Exactly ``layers`` flash launches, all on ``route`` (None: none)."""
+    n = counts.get("flash_attention", 0)
+    want = 0 if route is None else layers
+    check(n == want and (route is None or counts.get(route, 0) == layers),
+          f"{what}: {n} flash launches ({counts}), want {want}"
+          + ("" if route is None else f" on {route}"))
+
+
+def encdec_prefill(served: dict) -> dict:
+    """10b: prefill and eval through ``make_prefill_step`` /
+    ``make_eval_step`` at B = 2 with ``ENCDEC_S`` memory frames and
+    decoder tokens.  bf16 (the served TT-native weights) under both impls:
+    tok/s, the decoder's flash launches (one a decoder layer under
+    ``"pallas"``, on the mma route; none under ``"xla"``, none in the
+    encoder), the chains on their kernels, the impls' gap reported.
+    Float32 (the payload's TT-native params with float32 cores): TT-native
+    pallas vs xla and TT-native vs reconstruct-then-prefill within F32_TOL
+    of scale, every flash launch on the 3xTF32 route; eval at B = 1
+    under both impls, losses within 1e-5 relative.  Returns the record and
+    the float32 (model, params) for the memory and Engine checks."""
+    from repro_torch.train.steps import make_eval_step, make_prefill_step
+    out = served["out"]
+    model, params = out["model"], out["params"]
+    cfg = model.cfg
+    layers = cfg.num_layers
+    batch = _encdec_batch(cfg, ENCDEC_B, ENCDEC_S)
+    res = {"tok_per_s": {}, "counts": {}}
+    chains = ("tt_contract_2", "tt_contract_3")
+    lg = {}
+    for impl in ("pallas", "xla"):
+        step = make_prefill_step(model, impl=impl)
+        bb = {k: batch[k] for k in ("frames", "tokens")}
+        bb["frames"] = bb["frames"].bfloat16()
+        step(params, bb)                                  # warm-up
+        lg[impl], secs, counts = _counted(lambda: step(params, bb))
+        check(lg[impl].shape == (ENCDEC_B, cfg.vocab_size)
+              and bool(torch.isfinite(lg[impl]).all()),
+              f"encdec prefill bf16 {impl}: logits not finite")
+        _prefill_counts(counts, f"encdec prefill bf16 {impl}", chains,
+                        flash=True)
+        _flash_counts(counts, f"encdec prefill bf16 {impl}",
+                      "flash_attention_mma" if impl == "pallas" else None,
+                      layers)
+        res["tok_per_s"][impl] = ENCDEC_B * ENCDEC_S / secs
+        res["counts"][f"bf16/{impl}"] = counts
+        print(f"[chip_smoke] encdec prefill bf16 tt impl={impl}: B="
+              f"{ENCDEC_B}, {cfg.frontend_len} frames + {ENCDEC_S} tokens "
+              f"in {secs:.3f}s = {ENCDEC_B * ENCDEC_S / secs:.0f} decoder "
+              f"tok/s; launches {counts}")
+    d, scale = _gap(lg["pallas"], lg["xla"])
+    res["bf16_pallas_vs_xla"] = d / scale
+    b1 = {k: v[:1] for k, v in batch.items()}
+    b1["frames"] = b1["frames"].bfloat16()
+    res["bf16_eval_loss"] = {
+        impl: float(make_eval_step(model, impl=impl)(params, b1)["loss"])
+        for impl in ("pallas", "xla")}
+    print(f"[chip_smoke] encdec bf16 (reported): prefill pallas vs xla "
+          f"max|d|/scale {d / scale:.3e}; eval B=1 losses "
+          f"{json.dumps(res['bf16_eval_loss'])}")
+    del lg
+    m32 = _f32_model(model, DEVICE)
+    tt32, rx32 = f32_params(out["payload"], "encdec")
+    f32 = {}
+    for name, p, impl in (("tt/pallas", tt32, "pallas"),
+                          ("tt/xla", tt32, "xla"),
+                          ("rx/xla", rx32, "xla")):
+        step = make_prefill_step(m32, impl=impl)
+        bb = {k: batch[k] for k in ("frames", "tokens")}
+        f32[name], secs, counts = _counted(lambda: step(p, bb))
+        if name.startswith("tt"):
+            _prefill_counts(counts, f"encdec prefill f32 {name}", chains,
+                            flash=True)
+        else:
+            check_no_plain(counts, f"encdec prefill f32 {name}")
+        _flash_counts(counts, f"encdec prefill f32 {name}",
+                      "flash_attention_f32" if impl == "pallas" else None,
+                      layers)
+        res["counts"][f"f32/{name}"] = counts
+    for what, a, b in (("pallas vs xla (TT-native)", "tt/pallas", "tt/xla"),
+                       ("TT-native vs reconstruct", "tt/xla", "rx/xla")):
+        d, scale = _gap(f32[a], f32[b])
+        check(d <= F32_TOL * scale,
+              f"encdec f32 {what}: max|d| {d:.3e} over {F32_TOL} * scale "
+              f"{scale:.3e}")
+        res[f"f32 {what}"] = d / scale
+        print(f"[chip_smoke] encdec prefill f32 {what}: max|d|/scale "
+              f"{d / scale:.3e} (gate {F32_TOL})")
+    del f32, rx32
+    b1 = {k: v[:1] for k, v in batch.items()}
+    loss = {impl: float(make_eval_step(m32, impl=impl)(tt32, b1)["loss"])
+            for impl in ("pallas", "xla")}
+    rel = abs(loss["pallas"] - loss["xla"]) / abs(loss["xla"])
+    check(math.isfinite(loss["xla"]) and rel <= 1e-5,
+          f"encdec eval f32: losses {loss} differ by {rel:.3e} relative")
+    res["f32_eval_loss"], res["f32_eval_rel"] = loss, rel
+    print(f"[chip_smoke] encdec eval f32 TT-native B=1: losses "
+          f"{json.dumps(loss)}, {rel:.3e} relative (gate 1e-5)")
+    torch.cuda.empty_cache()
+    return res, m32, tt32
+
+
+def encdec_memory(m32, tt32) -> dict:
+    """10c, float32: ``populate_memory`` of 4 sources of 256 tokens against
+    ``admit_memory`` of each into its own slot (within F32_TOL of scale;
+    bit-equality reported); a slot with a source decodes otherwise than
+    one with none (the same tokens, ``mem_len`` 0)."""
+    from repro_torch.models import encdec
+    cfg = m32.cfg
+    rng = np.random.default_rng(26)
+    n = min(256, cfg.frontend_len)
+    src = torch.as_tensor(rng.integers(0, cfg.vocab_size, (4, n)),
+                          dtype=torch.int64, device=DEVICE)
+    with torch.inference_mode():
+        full = encdec.populate_memory(tt32, m32.init_cache(4, 8), src, cfg)
+        slots = m32.init_cache(4, 8)
+        slots.mem_len.fill_(0)
+        for i in (3, 1, 0, 2):
+            encdec.admit_memory(tt32, slots, i, src[i], cfg)
+        gaps = [_gap(getattr(slots, f), getattr(full, f))
+                for f in ("mem_k", "mem_v")]
+        bitwise = all(torch.equal(getattr(slots, f), getattr(full, f))
+                      for f in ("mem_k", "mem_v", "mem_len"))
+        d = max(g[0] / g[1] for g in gaps)
+        check(d <= F32_TOL and slots.mem_len.tolist() == [n] * 4,
+              f"encdec memory: admit vs populate max|d|/scale {d:.3e}, "
+              f"mem_len {slots.mem_len.tolist()}")
+        # slot 0 keeps its memory, slot 1 none: same tokens, 4 steps
+        slots.mem_len[1].fill_(0)
+        tok = _tokens(cfg.vocab_size, 1, 4, seed=3).expand(4, 4)
+        for t in range(4):
+            logits, slots = m32.decode_step(tt32, slots, tok[:, t:t + 1])
+        dd, scale = _gap(logits[0], logits[1])
+    check(dd > 1e-2 * scale, f"encdec memory: a slot with a source decodes "
+                             f"as one with none (max|d| {dd:.3e})")
+    print(f"[chip_smoke] encdec memory f32: admit_memory vs populate_memory "
+          f"max|d|/scale {d:.3e} (bit-equal: {bitwise}); with a source vs "
+          f"none after 4 steps max|d|/scale {dd / scale:.3e}")
+    return {"admit_vs_populate": d, "bitwise": bitwise,
+            "with_vs_without": dd / scale}
+
+
+def encdec_engine(engine_mod, served: dict, m32, tt32) -> dict:
+    """10d: the Engine (SERVE_SLOTS slots, boundary admission: the source
+    encoded at admission) on 8 requests with sources of 16-256 tokens and
+    a token-only one that recycles a slot.  Float32: every completion's
+    tokens equal to its isolated ``generate(src_tokens=...)`` run's bit
+    for bit and its prompt logits within F32_TOL of scale (bit-equality
+    reported; the recycled slot's also within 1e-3 of scale, the
+    reference's stale-memory bound), every chain on a kernel, no host
+    sync inside a chunk, scan admission refused.  Then bf16 ``tt`` (as served): tok/s, and the first
+    AGREE_REQS requests against their isolated runs, reported."""
+    cfg = m32.cfg
+    stream = serve_stream(cfg.vocab_size, n=9, seed=25, plen=(3, 17),
+                          gen=(4, 17))
+    rng = np.random.default_rng(27)
+    hi = min(ENCDEC_SRC[1], cfg.frontend_len + 1)
+    for r in stream[:8]:
+        r["src"] = rng.integers(0, cfg.vocab_size, int(rng.integers(
+            min(ENCDEC_SRC[0], hi - 1), hi)), np.int32)
+
+    def isolated(model, params, reqs):
+        return [engine_mod.generate(
+            model, params, r["prompt"][None], r["gen"], max_len=SERVE_MAX_LEN,
+            seed=r["seed"], temperature=r["temperature"], top_k=r["top_k"],
+            src_tokens=None if r.get("src") is None else r["src"][None])
+            for r in reqs]
+
+    iso = isolated(m32, tt32, stream)
+    r = engine_stream(engine_mod, m32, tt32, stream, "auto", no_sync=True)
+    bad = [i for i, (c, t) in enumerate(zip(r["comps"], iso))
+           if not np.array_equal(c.tokens, t["gen"][0])]
+    # prompt logits: a pooled row's rms_norm may round otherwise than the
+    # same row alone (the reduction picks its split by the row count), so
+    # they are held to F32_TOL of scale and their bit-equality reported
+    gaps = [_gap(torch.from_numpy(c.prompt_logits),
+                 t["prompt_logits"][0].cpu())
+            for c, t in zip(r["comps"], iso)]
+    logit_gap = max(d / sc for d, sc in gaps)
+    bitwise = sum(d == 0.0 for d, _ in gaps)
+    check(not bad, f"encdec engine f32: requests {bad} differ from their "
+                   f"isolated runs' tokens")
+    check(logit_gap <= F32_TOL, f"encdec engine f32: prompt logits "
+                                f"max|d|/scale {logit_gap:.3e}")
+    last = r["comps"][-1].prompt_logits
+    want = iso[-1]["prompt_logits"][0].cpu().numpy()
+    stale = float(np.abs(last - want).max())
+    check(stale <= 1e-3 * float(np.abs(want).max()) + 1e-5,
+          f"encdec engine: the recycled slot's logits moved by {stale:.3e}")
+    _chains_on_kernels(r["counts"], "encdec engine f32",
+                       ("tt_contract_2", "tt_contract_3"))
+    refused = False
+    try:
+        engine_mod.Engine(m32, tt32, slots=2, max_len=8, admission="scan")
+    except ValueError:
+        refused = True
+    check(refused, "encdec engine: scan admission was not refused")
+    res = {"requests": len(stream), "equal_isolated": len(stream) - len(bad),
+           "logits_bitwise": bitwise, "logit_gap": logit_gap,
+           "recycled_gap": stale, "scan_refused": refused,
+           "steps": r["steps"], "occupancy": r["occupancy"],
+           "tok_per_s": r["tok_per_s"], "wall_s": r["wall_s"],
+           "chunks_no_sync": r["chunks_no_sync"], "launches": r["counts"]}
+    print(f"[chip_smoke] encdec engine f32 (boundary): tokens of "
+          f"{res['equal_isolated']}/{len(stream)} equal to their isolated "
+          f"runs bit for bit, prompt logits max|d|/scale {logit_gap:.3e} "
+          f"({bitwise}/{len(stream)} bit-equal), recycled slot "
+          f"max|d| {stale:.3e}, {r['steps']} steps, occupancy "
+          f"{r['occupancy']:.3f}, {r['tok_per_s']:.1f} tok/s, "
+          f"{r['chunks_no_sync']} chunks under sync-debug 'error', scan "
+          f"refused: {refused}; launches {r['counts']}")
+    out = served["out"]
+    r = engine_stream(engine_mod, out["model"], out["params"], stream, "auto")
+    iso = isolated(out["model"], out["params"], stream[:AGREE_REQS])
+    agree = sum(np.array_equal(c.tokens, t["gen"][0])
+                for c, t in zip(r["comps"], iso))
+    res["tt"] = {"tok_per_s": r["tok_per_s"], "occupancy": r["occupancy"],
+                 "steps": r["steps"], "wall_s": r["wall_s"],
+                 "equal_isolated": f"{agree}/{AGREE_REQS}"}
+    print(f"[chip_smoke] encdec engine tt (bf16 activations): "
+          f"{r['tok_per_s']:.1f} tok/s, occupancy {r['occupancy']:.3f}, "
+          f"{r['steps']} steps in {r['wall_s']:.2f}s; first {AGREE_REQS} "
+          f"requests equal to isolated: {agree}/{AGREE_REQS} (reported)")
+    return res
+
+
+def encdec_flash() -> dict:
+    """10e: the flash kernel at the decoder's shape
+    (``cases.ENCDEC_SHAPE``) against its plain version in both routes
+    (float32 at TOL of max|ref| and within ``cases.F64_REL`` of float64;
+    bf16 at 2e-2 and per element against ``mha_tiled``), timed beside
+    SDPA and its bound."""
+    from repro_torch.kernels.flash_attention import cases as fc
+    from repro_torch.kernels.flash_attention import ops as fa
+    shape = fc.ENCDEC_SHAPE
+    rec = {}
+    for dtype in fc.DTYPES:
+        case = fc.flash_case(shape, dtype, torch.Generator(
+            device=DEVICE).manual_seed(5), DEVICE)
+        got, ref = case.kernel(), case.plain()
+        err, scale = _gap(got, ref)
+        ok = err <= (TOL * scale if dtype == torch.float32 else 2e-2)
+        r = {"max_abs_err": err}
+        if dtype == torch.float32:
+            gap = fc.f64_gap(got, fa.mha_ref(*(t.double() for t in
+                                               case.inputs), causal=True))
+            ok = ok and gap <= fc.F64_REL
+            r["max_rel_err_f64"] = gap
+        else:
+            gap = fc.tiled_gap(got, fa.mha_tiled(*case.inputs, causal=True))
+            ok = ok and gap <= fc.TILED_ABS
+            r["tiled_gap"] = gap
+        check(ok, f"flash_attention {shape} {dtype}: max|d| {err:.3e}, "
+                  f"gap {gap:.3e}")
+        r.update(flash_times(case, dtype))
+        print(f"[kernel] {fa.ROUTES[dtype][0]} {str(dtype)[6:]} encdec "
+              f"{shape}: max|d| {err:.3e} (ref max {scale:.3e}), gap "
+              f"{gap:.3e} {'ok' if ok else 'FAIL'}; {r.pop('line')}")
+        rec[dtype] = r
+    return rec
+
+
+def encdec_phase(ops, cases, serve_mod, rep: dict) -> dict:
+    """10: full-width seamless-m4t-large-v2 from the child's checkpoint:
+    serve (10a), prefill and eval (10b), memory (10c), the Engine (10d), the
+    flash kernel at the decoder's shape (10e) and the stored chains of the
+    path at B in {1, 4, 2,048} (2,048: a prefill's rows)."""
+    t0 = time.perf_counter()
+    served = encdec_serve(serve_mod, rep)
+    res = {"serve": served["summary"]}
+    res["prefill"], m32, tt32 = encdec_prefill(served)
+    res["memory"] = encdec_memory(m32, tt32)
+    res["engine"] = encdec_engine(serve_mod.engine_mod, served, m32, tt32)
+    del m32, tt32
+    info = served["out"]["info"]
+    del served
+    torch.cuda.empty_cache()
+    res["flash"] = encdec_flash()
+    res["chains"] = stored_phase(ops, cases, chain_shapes(info), ENCDEC_ARCH,
+                                 batch_sizes=(1, 4, ENCDEC_B * ENCDEC_S),
+                                 timed=(torch.bfloat16,))
+    res["secs"] = time.perf_counter() - t0
+    return res
+
+
 ENGINE_ROWS = [
     ("panel_factor", ("panel",), "householder/csrc/householder.cu",
      "householder/kernel.py:99", ("panel_factor",)),
@@ -2748,6 +3181,8 @@ def main() -> int:
               f"{time.perf_counter() - t0:.2f}s")
         children["recurrentgemma-2b"] = start_compression(
             "recurrentgemma-2b", HYBRID_SERVE_ARGS, work)
+        children[ENCDEC_ARCH] = start_compression(
+            ENCDEC_ARCH, ENCDEC_SERVE_ARGS, work)
         return run_phases(t_start, work, children, ops, cases, fa_ops,
                           serve_mod)
     finally:
@@ -2762,12 +3197,13 @@ def main() -> int:
 def run_phases(t_start, work, children, ops, cases, fa_ops,
                serve_mod) -> int:
     """Every phase after the build.  While ``children`` compress
-    recurrentgemma-2b and qwen3-8b, the main path, the checkpoint, the
+    recurrentgemma-2b, qwen3-8b and seamless-m4t-large-v2, the main path, the checkpoint, the
     float32 gates, the engine's compressions, the serving phase and
     qwen3-8b's serve run
     (their seconds and tok/s taken beside the children's work); the timed
     kernel checks, the prefill throughputs and the phases after them run
-    once both children have ended."""
+    once the children they need have ended; the encoder-decoder phase
+    runs last."""
     phase_s = {}
     ckpt_dir = str(Path(work) / ARCH)
     t0 = time.perf_counter()
@@ -2881,6 +3317,22 @@ def run_phases(t_start, work, children, ops, cases, fa_ops,
     print(f"[chip_smoke] moe phase {phase_s['moe']:.1f}s (and olmoe "
           f"prefill {phase_s['forward, olmoe']:.1f}s)")
 
+    t0 = time.perf_counter()
+    compressed[ENCDEC_ARCH] = finish_compression(ENCDEC_ARCH,
+                                                 children[ENCDEC_ARCH])
+    phase_s["waiting for the compressions"] += time.perf_counter() - t0
+    peaks = {k: v.get("peak_bytes", 0) for k, v in compressed.items()}
+    card_bytes = torch.cuda.get_device_properties(0).total_memory
+    check(sum(peaks.values()) <= card_bytes,
+          f"the child compressions' peaks {peaks} exceed the card's "
+          f"{card_bytes:,} B")
+    print(f"[chip_smoke] child compressions' peak device memory "
+          f"{json.dumps(peaks)}, together {sum(peaks.values()):,} B of the "
+          f"card's {card_bytes:,} B")
+    encdec = encdec_phase(ops, cases, serve_mod, compressed[ENCDEC_ARCH])
+    phase_s["encdec"] = encdec["secs"]
+    print(f"[chip_smoke] encdec phase {phase_s['encdec']:.1f}s")
+
     fwd_s = {k: v for k, v in phase_s.items() if k.startswith("forward")}
     print(f"[chip_smoke] forward and checkpoint phase "
           f"{sum(fwd_s.values()):.1f}s ({json.dumps(fwd_s)})")
@@ -2987,6 +3439,47 @@ def run_phases(t_start, work, children, ops, cases, fa_ops,
                      + ("dense bf16" if dtype == torch.bfloat16 else
                         "dense f32, gate G1") + ")",
         })
+    for name in ("tt_contract_2", "tt_contract_3"):
+        r = encdec["chains"][name]
+        kernels.append({
+            "name": f"{name}_encdec", "route": "cuda", "source": chain_src,
+            "replaces": {"tt_contract_2": "src/repro/kernels/tt_contract/kernel.py:138",
+                         "tt_contract_3": "src/repro/kernels/tt_contract/kernel.py:162"}[name],
+            "launches": encdec["serve"]["launches"].get(name, 0),
+            "prefill_launches": encdec["prefill"]["counts"][
+                "bf16/pallas"].get(name, 0),
+            "max_abs_err": r["max_abs_err"],
+            "max_abs_err_bf16_x": r["max_abs_err_bf16_x"],
+            "ms": r["ms"], "graph_ms": r["graph_ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": bound_by(r), "library_ms": r["library_ms"],
+            "timed": f"one tt_apply call from the stored tensors, summed "
+                     f"over one {ENCDEC_ARCH} encoder and decoder layer's "
+                     f"calls at B=4, bf16 x and cores; launches: the "
+                     f"serve run (B 4, prompt 16, gen 16, sources of "
+                     f"1,024 tokens) and one bf16 prefill",
+        })
+    for dtype, run in ((torch.bfloat16, "bf16/pallas"),
+                       (torch.float32, "f32/tt/pallas")):
+        name = fa_ops.ROUTES[dtype][0]
+        r = encdec["flash"][dtype]
+        kernels.append({
+            "name": f"{name}_encdec", "route": "cuda",
+            "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                      "flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention/kernel.py:93",
+            "launches": encdec["prefill"]["counts"][run].get(name, 0),
+            **{k: r[k] for k in ("max_abs_err", "ms", "graph_ms",
+                                 "plain_ms", "bound_ms", "bound_by",
+                                 "library_ms")},
+            **{k: r[k] for k in ("max_rel_err_f64", "tiled_gap",
+                                 "bound_ffma_ms") if k in r},
+            "timed": f"one {str(dtype)[6:]} call at {ENCDEC_ARCH}'s decoder "
+                     f"shape (B 2, S 1024, 16 Q and 16 KV heads, D 64, "
+                     f"causal); launches per prefill (one a decoder layer)",
+        })
+    print(f"[chip_smoke] encdec summary: " + json.dumps({
+        k: v for k, v in encdec.items() if k not in ("flash", "chains")}))
     print(f"[chip_smoke] hybrid stored chains: " + json.dumps(
         {k: {kk: v[kk] for kk in ("max_abs_err", "max_abs_err_bf16_x",
                                   "ms", "graph_ms", "bound_ms")}

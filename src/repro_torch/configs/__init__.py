@@ -6,8 +6,9 @@ import importlib
 
 from repro_torch.configs.base import HybridConfig, ModelConfig, MoEConfig
 
-# canonical names → module ids; the other archs of the JAX zoo come with
-# their families (ROADMAP.md queue 1, item 7)
+# canonical names → module ids (dense, MoE, hybrid and encoder-decoder);
+# the other archs of the JAX zoo come with their families (ROADMAP.md
+# queue 1, item 7b)
 NAME_TO_MODULE = {
     "qwen1.5-0.5b": "qwen1p5_0p5b",
     "recurrentgemma-2b": "recurrentgemma_2b",
@@ -15,6 +16,7 @@ NAME_TO_MODULE = {
     "qwen3-8b": "qwen3_8b",
     "qwen3-32b": "qwen3_32b",
     "dbrx-132b": "dbrx_132b",
+    "seamless-m4t-large-v2": "seamless_m4t_large_v2",
 }
 
 

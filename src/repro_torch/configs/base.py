@@ -1,9 +1,10 @@
 """Model configuration: the ``ModelConfig`` fields the ported families read.
 
-A copy of the dense-, MoE- and hybrid-family parts of the JAX package's
-``configs/base.py`` (the port never imports that package).  The other
-families and the training/sharding knobs (the MoE ones ``opt_moe_ep`` and
-``opt_moe_a2a`` included: TPU-mesh layouts) come with later slices.
+A copy of the dense-, MoE-, hybrid- and encoder-decoder-family parts of
+the JAX package's ``configs/base.py`` (the port never imports that
+package).  The other families and the training/sharding knobs (the MoE
+ones ``opt_moe_ep`` and ``opt_moe_a2a`` included: TPU-mesh layouts) come
+with later slices.
 """
 
 from __future__ import annotations
@@ -31,7 +32,7 @@ class HybridConfig:
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                   # dense | moe | hybrid (ported so far)
+    family: str                   # dense | moe | hybrid | encdec (ported)
     num_layers: int
     d_model: int
     num_heads: int
@@ -51,6 +52,11 @@ class ModelConfig:
     global_every: Optional[int] = None
     moe: Optional[MoEConfig] = None
     hybrid: Optional[HybridConfig] = None
+    # encoder-decoder
+    enc_layers: int = 0
+    # modality frontend stub: 'frames' (audio) | 'patches' (vision) | None
+    frontend: Optional[str] = None
+    frontend_len: int = 0         # stub sequence length of the frontend
     dtype: str = "bfloat16"
 
     @property
@@ -72,6 +78,8 @@ class ModelConfig:
             d_ff=256,
             vocab_size=512,
             head_dim=32 if self.head_dim else None,
+            frontend_len=8 if self.frontend else 0,
+            enc_layers=2 if self.enc_layers else 0,
         )
         if self.moe:
             base["moe"] = MoEConfig(num_experts=8, num_experts_per_tok=2,

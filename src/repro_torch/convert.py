@@ -6,7 +6,8 @@ Both take ``{dot-path: ...}`` dictionaries in the JAX package's path naming
 
   * ``params_from_numpy(flat, cfg, device)`` — ``{path: np.ndarray}`` →
     the port's params of ``cfg.family`` (``TransformerParams`` for the
-    dense and MoE families, ``GriffinParams``) in ``cfg.dtype`` (Λ stays
+    dense and MoE families, ``GriffinParams``, ``EncDecParams``) in
+    ``cfg.dtype`` (Λ stays
     float32, as the reference keeps it); a layer's FFN subtree must be the
     one its config has (``mlp``, or ``moe`` when ``cfg.moe`` is set);
   * ``payload_from_numpy(flat, device)`` — ``{path: {"kind": "tt" |
@@ -32,6 +33,9 @@ from repro_torch.core.tt import TTTensor
 from repro_torch.device import torch_dtype
 from repro_torch import tree as _tree
 from repro_torch.models.attention import AttnParams
+from repro_torch.models.encdec import (
+    DecLayerParams, EncDecParams, EncLayerParams,
+)
 from repro_torch.models.mlp import MLPParams, MoEParams
 from repro_torch.models.rglru import (
     AttnLayerParams, GriffinParams, RGLRULayerParams, TripleParams,
@@ -47,9 +51,14 @@ _SUBTREES = {
                    "at": AttnLayerParams},
     RGLRULayerParams: {"mlp": MLPParams},
     AttnLayerParams: {"attn": AttnParams, "mlp": MLPParams},
+    EncDecParams: {"enc_layers": EncLayerParams,
+                   "dec_layers": DecLayerParams},
+    EncLayerParams: {"attn": AttnParams, "mlp": MLPParams},
+    DecLayerParams: {"self_attn": AttnParams, "cross_attn": AttnParams,
+                     "mlp": MLPParams},
 }
 _ROOTS = {"dense": TransformerParams, "moe": TransformerParams,
-          "hybrid": GriffinParams}
+          "hybrid": GriffinParams, "encdec": EncDecParams}
 _F32_LEAVES = ("lam",)       # float32 whatever the model's dtype
 
 

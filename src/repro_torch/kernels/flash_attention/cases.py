@@ -31,6 +31,9 @@ from repro_torch.kernels.flash_attention import ops
 # recurrentgemma-2b's prefill at B = 2, S = 4,096: 10 Q heads, 1 KV head,
 # head dim 256, window 2,048
 PATH_SHAPE = (2, 4096, 10, 1, 256, True, 2048)
+# seamless-m4t-large-v2's decoder self-attention in a prefill at B = 2,
+# S = 1,024: 16 Q and 16 KV heads of 64, causal, no window
+ENCDEC_SHAPE = (2, 1024, 16, 16, 64, True, None)
 # the JAX package's own sweep (tests/test_kernels.py)
 REFERENCE_SHAPES = [
     (2, 256, 4, 2, 64, True, None),

@@ -12,7 +12,8 @@ two drivers:
 
 Both prefill by stepping the decode cache through the prompt and sample
 under the same per-row ``fold_in(keys[row], t)`` streams (greedy at
-temperature 0), so they agree token for token.
+temperature 0), so they agree token for token.  An encoder-decoder run
+(``src_tokens``) encodes its sources into the cache's memory rows first.
 
 ``Engine`` — continuous batching over the fused driver: a slot pool with
 per-slot lengths and sampling params and two admission modes; see its
@@ -127,14 +128,17 @@ def generate(model, params, prompts, gen: int, max_len: Optional[int] = None,
     — the same contract and tokens for both drivers.  ``temperature`` /
     ``top_k`` / ``seed``: row ``r`` samples under
     ``fold_in(PRNGKey(seed), r)``; temperature 0 (the default) is the
-    greedy argmax.  ``src_tokens`` is for encoder-decoder families, none of
-    which is ported: it raises on the token-only ones, as the reference's
-    does."""
+    greedy argmax.
+
+    ``src_tokens`` — the encoder input of an encoder-decoder family:
+    (S_src,) shared by every row or (B, S_src) a row; encoded once up front
+    into the cache's memory rows (``model.populate_memory``) before any
+    decode step.  A token-only family refuses it."""
     if driver not in DRIVERS:
         raise ValueError(f"unknown driver {driver!r} (choose from {DRIVERS})")
     if gen < 1:
         raise ValueError(f"gen must be >= 1, got {gen}")
-    if src_tokens is not None:
+    if src_tokens is not None and model.populate_memory is None:
         raise ValueError(
             f"family {model.cfg.family!r} takes token-only input (no "
             f"encoder memory); src_tokens is encdec-only")
@@ -145,6 +149,19 @@ def generate(model, params, prompts, gen: int, max_len: Optional[int] = None,
     if max_len is None:
         max_len = prompts.shape[1] + gen
     cache = model.init_cache(b, max_len)
+    if src_tokens is not None:
+        src = np.asarray(src_tokens, np.int64)
+        if src.ndim == 1:
+            src = np.broadcast_to(src, (b, src.shape[0]))
+        cap = model.cfg.frontend_len
+        if src.shape[1] > cap:
+            raise ValueError(
+                f"src_tokens needs {src.shape[1]} encoder positions, the "
+                f"cache's memory rows hold {cap}")
+        with torch.inference_mode():
+            cache = model.populate_memory(
+                params, cache, torch.as_tensor(np.ascontiguousarray(src),
+                                               device=model.device))
     keys = model_common.slot_keys(seed, b, device=model.device)
     if driver == "python":
         return _python_loop(model, params, cache, prompts, gen, sampling,
@@ -164,6 +181,7 @@ class Request(NamedTuple):
     key: np.ndarray               # (2,) int64 sampling base key
     temp: float = 0.0             # per-request temperature (0 = greedy)
     topk: int = 0                 # per-request top-k (0 = no filter)
+    src_tokens: Optional[np.ndarray] = None   # (slen,) int32 encoder input
 
 
 class InvalidRequest(ValueError):
@@ -238,19 +256,20 @@ class Engine:
     stream of unequal requests keeps every slot busy instead of padding to
     the longest.  Two admission modes:
 
-    * ``admission="scan"`` (the default) — the pending window rides on the
-      device (``common.ScanQueue``, uploaded once a chunk) and a slot that
-      retires mid-chunk is refilled on the NEXT step without ending the
-      chunk.  The host mirrors the schedule step by step (FIFO order,
-      lowest free slot first, retirement in slot order) and hands each step
-      its admissions and harvests as ``(slot, row)`` pairs: the step copies
-      those rows between device buffers at those indices (there is no
-      ``lax.scan`` whose body would need a masked sweep over every slot).
-      A retiring slot's rows are copied to the device done buffer
-      (``DoneBuf``) before a re-admission can overwrite them; the host reads
-      it once a chunk.
+    * ``admission="scan"`` (the default of token-only families) — the
+      pending window rides on the device (``common.ScanQueue``, uploaded
+      once a chunk) and a slot that retires mid-chunk is refilled on the
+      NEXT step without ending the chunk.  The host mirrors the schedule
+      step by step (FIFO order, lowest free slot first, retirement in slot
+      order) and hands each step its admissions and harvests as ``(slot,
+      row)`` pairs: the step copies those rows between device buffers at
+      those indices (there is no ``lax.scan`` whose body would need a
+      masked sweep over every slot).  A retiring slot's rows are copied to
+      the device done buffer (``DoneBuf``) before a re-admission can
+      overwrite them; the host reads it once a chunk.
     * ``admission="boundary"`` — harvest and one admission per request
-      between chunks.
+      between chunks (the default, and the only mode, of a family with
+      encoder input).
 
     Both give byte-equal completions: a slot's row runs the same
     arithmetic at the same pool size wherever it is admitted.
@@ -272,9 +291,19 @@ class Engine:
     slot is frozen at once and freed for the next admission); the router
     uses it for deadlines and client disconnects.
 
-    Families: dense, hybrid and MoE (token-only: ``src_tokens`` raises).
-    MoE serves, but staggered == isolated is not promised there (expert
-    capacity couples the rows of a batch; ``mlp.moe_apply``).
+    Encoder-decoder requests ride slots like any other: ``submit`` takes
+    the request's source tokens, and its admission resets the slot and
+    encodes the source (``model.admit_memory``), writing the projected
+    cross-attention K/V into that slot's memory rows; ``mem_len`` masks
+    the unused tail rows.  A token-only admission leaves the zeroed rows
+    and ``mem_len`` 0, so a recycled slot never shows a previous
+    occupant's memory.  The encode runs on the host's schedule between
+    chunks, so such a family takes boundary admission only.
+
+    Families: dense, hybrid, MoE (token-only: ``src_tokens`` raises) and
+    encoder-decoder.  MoE serves, but staggered == isolated is not
+    promised there (expert capacity couples the rows of a batch;
+    ``mlp.moe_apply``).
     """
 
     def __init__(self, model, params, slots: int = 4, max_len: int = 128,
@@ -285,8 +314,14 @@ class Engine:
             raise ValueError(
                 f"unknown admission mode {admission!r} "
                 f"(choose from {ADMISSION_MODES})")
-        if admission == "auto":      # every ported family is token-only
-            admission = "scan"
+        if admission == "auto":
+            admission = ("boundary" if model.admit_memory is not None
+                         else "scan")
+        if admission == "scan" and model.admit_memory is not None:
+            raise ValueError(
+                f"family {model.cfg.family!r} carries encoder input; "
+                f"admission runs the encode between chunks, so it must use "
+                f"admission='boundary' (or 'auto')")
         self.model = model
         self.params = params
         self.slots = slots
@@ -295,6 +330,9 @@ class Engine:
         self.admission = admission
         self.sampling = model_common.make_sampling(temperature, top_k)
         self.seed = seed
+        # encoder positions a slot's memory rows hold (0: token-only)
+        self.src_capacity = (model.cfg.frontend_len
+                             if model.admit_memory is not None else 0)
         self._step = model.decode_step
         self.queue: deque = deque()
         self._occupant: List[Optional[Request]] = [None] * slots
@@ -370,8 +408,9 @@ class Engine:
                  top_k: Optional[int] = None):
         """Normalize and validate a request without queuing it — the
         front door's fail-fast check (a bad request must 400 before it takes
-        a queue slot).  Returns ``(prompt, sampling)``; raises
-        ``InvalidRequest`` (a ``ValueError``) on anything malformed."""
+        a queue slot).  Returns ``(prompt, src, sampling)`` (``src`` None
+        for a token-only request); raises ``InvalidRequest`` (a
+        ``ValueError``) on anything malformed."""
         prompt = self._token_ids(prompt, "prompt")
         if not isinstance(gen, (int, np.integer)):
             raise InvalidRequest(
@@ -380,15 +419,28 @@ class Engine:
             raise InvalidRequest(
                 f"request needs a non-empty prompt and gen >= 1, got "
                 f"plen={len(prompt)} gen={gen}")
+        src = None
         if src_tokens is not None:
+            if self.model.admit_memory is None:
+                raise InvalidRequest(
+                    f"family {self.model.cfg.family!r} takes token-only "
+                    f"requests (no encoder input); src_tokens is "
+                    f"encdec-only")
+            src = self._token_ids(src_tokens, "src_tokens")
+            if len(src) < 1:
+                raise InvalidRequest(
+                    "src_tokens, when given, must be non-empty")
+        need_dec = len(prompt) + gen
+        need_enc = 0 if src is None else len(src)
+        if need_dec > self.max_len or need_enc > self.src_capacity:
             raise InvalidRequest(
-                f"family {self.model.cfg.family!r} takes token-only "
-                f"requests (no encoder input); src_tokens is encdec-only")
-        need = len(prompt) + gen
-        if need > self.max_len:
-            raise InvalidRequest(
-                f"request needs {need} decoder positions, pool rows hold "
-                f"{self.max_len} decoder positions")
+                f"request needs {need_dec} decoder positions"
+                + (f" and {need_enc} encoder positions" if src is not None
+                   else "")
+                + f", pool rows hold {self.max_len} decoder"
+                + (f" and {self.src_capacity} encoder" if src is not None
+                   else "")
+                + " positions")
         try:
             s = model_common.make_sampling(
                 self.sampling.temperature if temperature is None
@@ -396,7 +448,7 @@ class Engine:
                 self.sampling.top_k if top_k is None else top_k)
         except (TypeError, ValueError) as e:
             raise InvalidRequest(str(e)) from None
-        return prompt, s
+        return prompt, src, s
 
     def submit(self, prompt, gen: int, src_tokens=None,
                seed: Optional[int] = None,
@@ -408,8 +460,8 @@ class Engine:
         request; ``seed`` gives it the row-0 key of an isolated
         ``generate(..., seed=seed)`` run, so sampled staggered-vs-isolated
         parity holds key for key."""
-        prompt, s = self.validate(prompt, gen, src_tokens, temperature,
-                                  top_k)
+        prompt, src, s = self.validate(prompt, gen, src_tokens, temperature,
+                                       top_k)
         uid = self._uid
         self._uid += 1
         if seed is not None:
@@ -420,7 +472,7 @@ class Engine:
             key = prng.fold_in(model_common.slot_keys(self.seed, 1)[0], uid)
         self.queue.append(Request(
             uid, prompt, int(gen), key.numpy(), temp=s.temperature,
-            topk=0 if s.top_k is None else s.top_k))
+            topk=0 if s.top_k is None else s.top_k, src_tokens=src))
         return uid
 
     def cancel(self, uid: int) -> bool:
@@ -481,6 +533,14 @@ class Engine:
         self.state = _admit_slot(
             self.state, i, torch.from_numpy(row), plen, plen + req.gen,
             torch.from_numpy(req.key), req.temp, req.topk)
+        if req.src_tokens is not None:
+            # encode at admission: the request's memory goes into THIS
+            # slot's rows (zeroed just above) and its mem_len
+            src = torch.from_numpy(req.src_tokens.astype(np.int64)).to(
+                self.model.device)
+            with torch.inference_mode():
+                self.model.admit_memory(self.params, self.state.cache, i,
+                                        src)
         self._occupant[i] = req
         self._remaining[i] = plen + req.gen - 1
 

@@ -21,8 +21,11 @@ Two modes share one model setup (``--weights``/``--tt-*`` work in both):
 
 ``--arch`` is any ported config (``repro_torch.configs.NAME_TO_MODULE``:
 qwen1.5-0.5b of the dense family, olmoe-1b-7b of the MoE family,
-recurrentgemma-2b of the hybrid family); every family serves through the
-same ``Model`` API.
+recurrentgemma-2b of the hybrid family, seamless-m4t-large-v2 of the
+encoder-decoder family); every family serves through the same ``Model``
+API.  In batch mode an encoder-decoder row also gets a random source of
+``frontend_len`` tokens from ``--seed``, encoded into its memory before
+decode; in server mode a request brings its own ``src_tokens``.
 
 Runs on the first CUDA card unless ``--device cpu`` is given.  With
 ``--weights tt`` the weights (random from ``--seed``, given a power-law
@@ -78,12 +81,16 @@ def _quant_of(weights: str) -> Optional[str]:
     return None
 
 
-def teacher_forced_logits(model, params, prompts: torch.Tensor) -> np.ndarray:
-    """Per-position next-token logits over the prompt → (B, S-1, V)."""
+def teacher_forced_logits(model, params, prompts: torch.Tensor,
+                          src: Optional[torch.Tensor] = None) -> np.ndarray:
+    """Per-position next-token logits over the prompt → (B, S-1, V); an
+    encoder-decoder's rows attend to the memory of ``src`` (B, S_src)."""
     b, s = prompts.shape
     cache = model.init_cache(b, s)
     outs = []
     with torch.inference_mode():
+        if src is not None:
+            cache = model.populate_memory(params, cache, src)
         for t in range(s - 1):
             logits, cache = model.decode_step(params, cache,
                                               prompts[:, t:t + 1])
@@ -216,7 +223,10 @@ def _setup(args, compressed=None):
     if args.reduced:
         cfg = cfg.reduced()
     if args.layers is not None:
-        cfg = dataclasses.replace(cfg, num_layers=args.layers)
+        # an encoder-decoder keeps as many encoder layers as decoder ones
+        cfg = dataclasses.replace(
+            cfg, num_layers=args.layers,
+            enc_layers=args.layers if cfg.enc_layers else 0)
     model = build(cfg, device=args.device)
     if args.weights == "dense":
         params = model.init(args.seed)
@@ -234,8 +244,8 @@ def _setup(args, compressed=None):
 def serve(args, compressed=None) -> dict:
     """Run one batch; returns tok/s, the tokens, the run, the verify
     numbers and the setup info, plus the model, the served params, the
-    dense params they came from, the payload and the prompts for further
-    checks.  ``compressed``: ``info["compressed"]`` of an earlier run with
+    dense params they came from, the payload, the prompts and the sources
+    (None for a token-only family) for further checks.  ``compressed``: ``info["compressed"]`` of an earlier run with
     the same ``--arch``, ``--seed``, ``--tt-eps`` and ``--tt-alpha``, whose
     compression this run reuses (``compress_s`` is then that run's)."""
     cfg, model, params, payload, info, dense = _setup(args, compressed)
@@ -245,8 +255,14 @@ def serve(args, compressed=None) -> dict:
 
     prompts = rng.integers(0, cfg.vocab_size, size=(b, args.prompt_len),
                            dtype=np.int32)
-    sample_kw = dict(temperature=args.temperature, top_k=args.top_k,
-                     seed=args.seed)
+    # an encoder-decoder row carries encoder input: a source of
+    # frontend_len tokens, encoded into its memory before decode
+    src = None
+    if model.populate_memory is not None:
+        src = rng.integers(0, cfg.vocab_size, size=(b, cfg.frontend_len),
+                           dtype=np.int32)
+    sample_kw = dict(src_tokens=src, temperature=args.temperature,
+                     top_k=args.top_k, seed=args.seed)
     run = engine_mod.generate(model, params, prompts, args.gen,
                               max_len=max_len, driver=args.driver,
                               **sample_kw)
@@ -263,10 +279,11 @@ def serve(args, compressed=None) -> dict:
                   "bound": model_common.parity_bound(scale)}
         line = f"next-token agreement {agree:.2%}"
         if _quant_of(args.weights) is not None:
-            pt = torch.as_tensor(prompts, dtype=torch.int64,
-                                 device=model.device)
-            tf_q = teacher_forced_logits(model, params, pt)
-            tf_rx = teacher_forced_logits(model, params_rx, pt)
+            pt, ps = (None if a is None else torch.as_tensor(
+                a, dtype=torch.int64, device=model.device)
+                for a in (prompts, src))
+            tf_q = teacher_forced_logits(model, params, pt, ps)
+            tf_rx = teacher_forced_logits(model, params_rx, pt, ps)
             verify["tie_agree"] = tie_tolerant_agreement(tf_q, tf_rx)
             verify["positions"] = int(tf_rx.shape[0] * tf_rx.shape[1])
             line = (f"tie-tolerant next-token agreement "
@@ -287,7 +304,7 @@ def serve(args, compressed=None) -> dict:
     return {"tok_per_s": tps, "generated": gen, "run": run,
             "verify": verify, "info": info, "model": model,
             "params": params, "dense_params": dense, "payload": payload,
-            "prompts": prompts}
+            "prompts": prompts, "src": src}
 
 
 def make_router(args):
@@ -333,7 +350,9 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--layers", type=int, default=None,
                     help="serve only the first N layers of --arch (a cut "
-                         "of depth: every width as configured)")
+                         "of depth: every width as configured; an "
+                         "encoder-decoder keeps N encoder and N decoder "
+                         "layers)")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen", type=int, default=16)
@@ -402,7 +421,8 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                     default="auto",
                     help="slot admission: 'scan' admits inside a chunk from "
                          "a device queue, 'boundary' between chunks; "
-                         "'auto' is 'scan'")
+                         "'auto' is 'scan', or 'boundary' for a family "
+                         "with encoder input")
     return ap.parse_args(argv)
 
 

@@ -1,6 +1,7 @@
 """Attention: QKV projection (with bias and qk-norm), causal prefill
-attention (``causal_attend``), and single-token decode (the KV-cache write
-and LSE-style attention over the cache).
+attention (``causal_attend``), full attention over an encoder memory
+(``cross_attend``), and single-token decode (the KV-cache write and
+LSE-style attention over the cache).
 
 Port of the JAX package's ``models/attention.py``.  ``causal_attend`` has
 the reference's two implementations: ``impl="xla"``, the plain chunked
@@ -150,6 +151,25 @@ def _attend_block(qblk, k, v, q_pos, window, is_global, scale):
     scores = _gqa_scores(qblk, k) * scale
     scores = torch.where(mask, scores, NEG_INF)
     return _gqa_out(torch.softmax(scores, dim=-1), v).to(qblk.dtype)
+
+
+def cross_attend(q, k, v, cfg, mem_len=None):
+    """Full (unmasked, non-causal) attention of q (B, S, Hq, Dh) over k, v
+    (B, T, Hkv, Dh): the encoder's self-attention and the decoder's
+    attention to the encoder memory.
+
+    ``mem_len`` — optional () or (B,) count of valid memory rows per batch
+    row; rows at or past it are masked out (a slot's memory fills a prefix
+    of the fixed-size ``mem_k``/``mem_v`` rows).  The mask is the finite
+    ``NEG_INF``, so ``mem_len == 0`` gives a uniform softmax over zero V
+    rows: exactly zero output, not NaN.  ``None`` applies no mask."""
+    scores = _gqa_scores(q, k) * q.shape[-1] ** -0.5     # (B,Hkv,G,S,T)
+    if mem_len is not None:
+        t = k.shape[1]
+        valid = (torch.arange(t, device=q.device)[None, :]
+                 < torch.as_tensor(mem_len, device=q.device).reshape(-1, 1))
+        scores = torch.where(valid[:, None, None, None], scores, NEG_INF)
+    return _gqa_out(torch.softmax(scores, dim=-1), v).to(q.dtype)
 
 
 def decode_attend(q, k_cache, v_cache, pos, cfg,

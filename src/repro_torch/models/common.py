@@ -411,9 +411,16 @@ def make_done_buf(capacity: int, t_max: int, vocab: int, device) -> DoneBuf:
 
 def zero_slot_leaf(leaf: torch.Tensor, i: int) -> torch.Tensor:
     """Zero slot ``i``'s rows of a cache leaf in place.  Convention (every
-    family): the only 1-D leaf is the per-slot ``pos``; every other leaf
-    stacks (L, B, ...) with the slot on axis 1 (``transformer.DecodeCache``
-    K/V, ``rglru.GriffinCache`` state, conv history and ring)."""
+    family): the only 1-D leaves are the per-slot counters ``pos`` and the
+    encoder-decoder's ``mem_len``; every other leaf stacks (L, B, ...) with
+    the slot on axis 1 (``transformer.DecodeCache`` K/V,
+    ``rglru.GriffinCache`` state, conv history and ring,
+    ``encdec.EncDecCache`` K/V and memory K/V).  Zeroing an encoder-decoder
+    slot leaves ``mem_len`` at 0, every memory row masked: it decodes as
+    the zeroed memory rows would (zero output), so a token-only request
+    admitted after a request with a source never sees its memory;
+    ``encdec.admit_memory`` then writes the rows and ``mem_len`` of a
+    request that has a source."""
     # fill_, not ``leaf[i] = 0``: assigning a Python number copies it from
     # the host, which syncs
     if leaf.ndim == 1:

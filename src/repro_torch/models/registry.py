@@ -6,23 +6,33 @@
   init_cache(batch, max_len) -> cache
   decode_step(params, cache, tokens) -> (logits, cache)
 
-for the dense, MoE and hybrid families.  ``impl`` is the reference's:
-``"xla"`` runs the plain attention path, ``"pallas"`` the hand-written
-flash kernel where the reference's would (the hybrid family's attention
-layers; the dense and MoE forward keep to the plain path under both, as the
-reference's scanned layer flag does).  A batch may carry ``prefix_embeds``
-(B, P, D), a frontend's embeddings put before the tokens.
+for the dense, MoE, hybrid and encoder-decoder families.  ``impl`` is the
+reference's: ``"xla"`` runs the plain attention path, ``"pallas"`` the
+hand-written flash kernel where the reference's would (the hybrid family's
+attention layers and the encoder-decoder's decoder self-attention; the
+dense and MoE forward keep to the plain path under both, as the
+reference's scanned layer flag does).  A dense or MoE batch may carry
+``prefix_embeds`` (B, P, D), a frontend's embeddings put before the
+tokens; an encoder-decoder batch carries ``frames`` (B, S_enc, D), the
+encoder's input.
+
+The encoder-decoder family also has the two encoder-memory hooks (None for
+every other family, which takes token-only input):
+
+  populate_memory(params, cache, src_tokens (B, S_src)) -> cache
+  admit_memory(params, cache, slot, src_row (S_src,)) -> cache
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.models import encdec as encdec_mod
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import transformer as tfm
 
@@ -36,6 +46,10 @@ class Model:
     loss_fn: Callable
     init_cache: Callable
     decode_step: Callable
+    # encoder-memory hooks (encdec only; the serving layer keys "does this
+    # family take encoder input" off their presence)
+    populate_memory: Optional[Callable] = None
+    admit_memory: Optional[Callable] = None
 
 
 def _build_transformer(cfg: ModelConfig, device: torch.device) -> Model:
@@ -68,8 +82,27 @@ def _build_griffin(cfg: ModelConfig, device: torch.device) -> Model:
     )
 
 
+def _build_encdec(cfg: ModelConfig, device: torch.device) -> Model:
+    return Model(
+        cfg=cfg, device=device,
+        init=lambda seed: encdec_mod.init(seed, cfg, device),
+        prefill=lambda p, b, impl="xla": encdec_mod.prefill(
+            p, b, cfg, impl=impl),
+        loss_fn=lambda p, b, impl="xla": encdec_mod.loss_fn(
+            p, b, cfg, impl=impl),
+        # bf16 cache whatever the weights' dtype, as the reference's
+        init_cache=lambda batch, max_len: encdec_mod.init_cache(
+            cfg, batch, max_len, device),
+        decode_step=lambda p, c, t: encdec_mod.decode_step(p, c, t, cfg),
+        populate_memory=lambda p, c, s: encdec_mod.populate_memory(
+            p, c, s, cfg),
+        admit_memory=lambda p, c, i, s: encdec_mod.admit_memory(
+            p, c, i, s, cfg),
+    )
+
+
 _BUILDERS = {"dense": _build_transformer, "moe": _build_transformer,
-             "hybrid": _build_griffin}
+             "hybrid": _build_griffin, "encdec": _build_encdec}
 
 
 def build(cfg: ModelConfig, device=None) -> Model:

@@ -38,7 +38,8 @@ def test_port_files_exist():
             "recurrentgemma_2b.py", "olmoe_1b_7b.py", "mlp.py",
             "checkpoint.py", "qwen3_8b.py", "qwen3_32b.py",
             "dbrx_132b.py", "flash_f32_drift.py", "prng.py", "router.py",
-            "server.py", "fault_tolerance.py"} <= names
+            "server.py", "fault_tolerance.py", "encdec.py",
+            "seamless_m4t_large_v2.py"} <= names
     assert (REPO / "src" / "repro_torch" / "checkpoint" / "checkpoint.py"
             ).is_file()
     kernels = REPO / "src" / "repro_torch" / "kernels"

@@ -4,7 +4,9 @@ failover, restart), the asyncio HTTP server, the fault plan and restart
 policy, and ``serve --serve``'s setup — the behaviours
 ``tests/test_server.py`` and the serving half of
 ``tests/test_fault_tolerance.py`` hold the JAX package to, on reduced
-qwen1.5-0.5b (float32) with ``device="cpu"``.  Every completion that comes
+qwen1.5-0.5b (float32) with ``device="cpu"``, and an encoder-decoder
+request's ``src_tokens`` through the server to a reduced
+seamless-m4t-large-v2 Engine.  Every completion that comes
 back is compared with the isolated ``generate`` run of its request.
 """
 
@@ -472,6 +474,44 @@ def test_serve_flags_and_router_setup(tmp_path):
         assert status == 200
         assert json.loads(data)["tokens"] == _iso(
             model, params, p, 4, seed=2, temperature=0.5, top_k=8)
+    finally:
+        shutdown()
+
+
+def test_http_encdec_request_with_sources():
+    """An encoder-decoder JSON request's ``src_tokens`` pass the server and
+    the router to an encdec Engine, which encodes them at admission: the
+    reply is its isolated ``generate(src_tokens=...)`` run's tokens, beside
+    a token-only request; a source longer than the memory rows is a 400."""
+    no_tf32()
+    cfg = f32_cfg(get_config("seamless-m4t-large-v2"))
+    model = build(cfg, device="cpu")
+    params = model.init(0)
+    eng = Engine(model, params, slots=2, max_len=16, chunk_steps=3)
+    assert eng.admission == "boundary"
+    server, shutdown = serve_in_thread(Router([eng], queue_depth=4))
+    try:
+        rng = np.random.default_rng(11)
+        cases = [(_prompt(cfg, 4, seed=12).tolist(),
+                  rng.integers(0, cfg.vocab_size, (n,)).tolist())
+                 for n in (6, 8)] + [(_prompt(cfg, 3, seed=13).tolist(),
+                                      None)]
+        for p, src in cases:
+            body = {"prompt": p, "gen": 5, "seed": 1}
+            if src is not None:
+                body["src_tokens"] = src
+            status, data, _ = _post(server.port, body)
+            assert status == 200
+            assert json.loads(data)["tokens"] == _iso(
+                model, params, p, 5, seed=1, max_len=16,
+                src_tokens=None if src is None else np.asarray([src]))
+        assert _iso(model, params, cases[0][0], 5, max_len=16) != _iso(
+            model, params, cases[0][0], 5, max_len=16,
+            src_tokens=np.asarray([cases[0][1]]))
+        status, data, _ = _post(server.port, {
+            "prompt": [1, 2], "gen": 2,
+            "src_tokens": [0] * (cfg.frontend_len + 1)})
+        assert status == 400 and b"encoder positions" in data
     finally:
         shutdown()
 

@@ -1,14 +1,15 @@
 """Seconds to compress a full-width model on the card, with the port package
 of a given checkout — to compare two checkouts on one card.
 
-    python3 tools/compress_time.py [--src DIR] [--arch ARCH]
+    python3 tools/compress_time.py [--src DIR] [--arch ARCH] [--layers N]
                                    [--plan serial|batched]
                                    [--hbd-impl unblocked|blocked] [--phases]
 
 ``--src`` is the ``src`` directory whose ``repro_torch`` is imported
 (default: this checkout's); ``--arch`` the config (default qwen1.5-0.5b;
-recurrentgemma-2b and olmoe-1b-7b are the hybrid and MoE paths'
-compressions).  The weights are ``serve --weights tt``'s: seed 0, its
+recurrentgemma-2b, olmoe-1b-7b and seamless-m4t-large-v2 are the hybrid,
+MoE and encoder-decoder paths' compressions); ``--layers`` cuts the depth
+(an encoder-decoder's encoder too), every width kept.  The weights are ``serve --weights tt``'s: seed 0, its
 spectral decay, compressed at eps 0.2 with ``min_size=8192``.  Prints one
 JSON line: the seconds of ``compress`` (synchronized; neither the decay nor
 the kernels' build is timed), the payload size and the ranks; with
@@ -32,12 +33,15 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--src", default=os.path.join(TOOLS, "..", "src"))
     ap.add_argument("--arch", default="qwen1.5-0.5b")
+    ap.add_argument("--layers", type=int, default=None)
     ap.add_argument("--plan", default=None)
     ap.add_argument("--hbd-impl", default="unblocked")
     ap.add_argument("--phases", action="store_true")
     args = ap.parse_args()
     sys.path.insert(0, os.path.abspath(args.src))
     sys.path.insert(0, TOOLS)
+    import dataclasses
+
     import torch
 
     from cuda_timing import PhaseTimers
@@ -57,7 +61,13 @@ def main() -> None:
     from repro_torch.kernels.householder import ops as hh
     from repro_torch.kernels.singular_sort import ops as ss
     kbuild.load_many([m.SOURCE for m in (hh, wy, ss, ft)])
-    model = build(get_config(args.arch), device="cuda")
+    cfg = get_config(args.arch)
+    if args.layers is not None:
+        cfg = dataclasses.replace(
+            cfg, num_layers=args.layers,
+            **({"enc_layers": args.layers} if getattr(cfg, "enc_layers", 0)
+               else {}))
+    model = build(cfg, device="cuda")
     params = spectral_decay_pytree(model.init(0), alpha=1.0)
     kw = dict(eps=0.2, min_size=8192, hbd_impl=args.hbd_impl)
     if args.plan:
@@ -73,12 +83,14 @@ def main() -> None:
     ranks = {p: list(c.tt.ranks) for p, c in tree.leaves_with_paths(
         payload, is_leaf=comp.is_compressed_param) if c.kind == "tt"}
     print(json.dumps({"src": args.src, "arch": args.arch,
+                      "layers": cfg.num_layers,
                       "plan": args.plan or "default",
                       "hbd_impl": args.hbd_impl, "compress_s": secs,
                       "payload_params": report.payload_params,
                       "phases": (timers.breakdown(secs) if args.phases
                                  else None),
                       "device": torch.cuda.get_device_name(0),
+                      "peak_bytes": torch.cuda.max_memory_allocated(),
                       "ranks": ranks}))
 
 
