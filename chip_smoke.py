@@ -185,7 +185,8 @@
    flash route and one per batched chain route, the float32 banks' FFMA
    route too; the panel rows with their main-path route counts; the
    chains and both flash routes again at the encoder-decoder's shapes,
-   ``*_encdec``, with that phase's launches),
+   ``*_encdec``, with that phase's launches; and at mamba2-1.3b's,
+   ``*_ssm``),
    the card line again, and as the last line ``{"ok": true, "device":
    {...}}``.
 
@@ -256,10 +257,41 @@
       timed beside SDPA and its bound; the path's stored chains at B in
       {1, 4, 2,048} (as 3.).
 
+11. SSM phase (``models/mamba2.py``: chunked SSD prefill, O(1)-state
+   decode), last, from a fourth child compression (``serve --arch
+   mamba2-1.3b --weights tt --save-tt-checkpoint``, started with the
+   other three; it waits for seamless's to end before it compresses:
+   four at once beside the TTD-engine phase run the card out of
+   memory): full-width mamba2-1.3b (``SSM_LAYERS`` = 24 of 48 layers;
+   d_model 2048, d_inner 4096, 64 heads of 64, state 128, conv 4, chunk
+   256, vocab 50,280 tied), random weights from seed 0 with the spectral
+   decay, eps 0.2:
+   a. ``serve --weights tt`` then ``--weights tt-int8`` from the checkpoint
+      (B 4, prompt 16, gen 16): the leaves equal bit for bit to the
+      child's payload (``leaf_digests``), a flipped byte refused, exactly
+      w_in and w_out served from cores, every chain on its kernel with no
+      plain call, fused == python driver tokens; decode tok/s and the
+      verify numbers reported;
+   b. bf16 prefill B = 2 x S = 4,096 (TT-native and dense): tok/s and the
+      share of the device time in ``ssd_chunked`` (CUDA events), reported;
+      exactly two ``tt_apply`` calls a layer, no flash launch.  Float32
+      (TT leaves with float32 cores), gated: TT-native vs reconstruct
+      prefill (B 1 x 2,048) within F32_TOL of scale, eval losses within
+      1e-5 relative, and every position's logits of the chunked prefill
+      of 300 tokens (a chunk of 256 and a padded tail) against the decode
+      cache stepped through them, each within F32_TOL of its scale;
+   c. the Engine (4 slots, chunks of 8, 8 requests, greedy and sampled
+      mixed) in float32: tokens equal to the isolated runs' in both
+      admission modes, scan == boundary byte for byte, chains on their
+      kernels, no host sync inside a chunk; bf16 ``tt`` tok/s reported;
+   d. the path's stored chains (w_in 2,048 -> 8,512, w_out 4,096 ->
+      2,048) at B in {1, 4, 64, 8,192} (as 3.).
+
 Cuts of depth (every width as configured): qwen3-8b runs 8 of its 36
 layers; recurrentgemma-2b ``HYBRID_LAYERS`` of its 26;
 seamless-m4t-large-v2 ``ENCDEC_LAYERS`` = 12 of its 24 encoder and 24
-decoder layers.  Nothing else is cut.
+decoder layers; mamba2-1.3b ``SSM_LAYERS`` of its 48.  Nothing else is
+cut.
 
 Exits non-zero without a CUDA card, and on any failed phase.
 """
@@ -269,6 +301,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import os
 import re
 import shutil
 import struct
@@ -278,6 +311,7 @@ import tempfile
 import time
 import zipfile
 from pathlib import Path
+from typing import Optional
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
@@ -338,15 +372,23 @@ def check(ok: bool, msg: str) -> None:
 # (``--tt-checkpoint``).  Their seconds are taken while other phases share
 # the card and the host.
 
-def start_compression(name: str, serve_args, work: str) -> dict:
-    """Start ``python3 chip_smoke.py --compress CKPT REPORT serve-args``."""
+AFTER_TIMEOUT_S = 900.0      # longest a child waits for the one before it
+
+
+def start_compression(name: str, serve_args, work: str,
+                      after: Optional[dict] = None) -> dict:
+    """Start ``python3 chip_smoke.py --compress CKPT REPORT [--after
+    REPORT0] serve-args``; with ``after`` (another child), the process
+    waits for that child's report before it compresses, so the two
+    compressions' device memory never adds up."""
     ckpt = str(Path(work) / name)
     report = str(Path(work) / f"{name}.json")
     log_path = Path(work) / f"{name}.log"
     log = open(log_path, "w")
+    wait = [] if after is None else ["--after", after["report"]]
     proc = subprocess.Popen(
         [sys.executable, str(ROOT / "chip_smoke.py"), "--compress", ckpt,
-         report, *serve_args], stdout=log, stderr=subprocess.STDOUT)
+         report, *wait, *serve_args], stdout=log, stderr=subprocess.STDOUT)
     return {"proc": proc, "ckpt": ckpt, "report": report, "log": log,
             "log_path": log_path, "t0": time.perf_counter()}
 
@@ -376,7 +418,8 @@ def finish_compression(name: str, child: dict,
     check_no_plain(counts, f"{name} compression")
     print(f"[chip_smoke] {name}: compressed in a child process in "
           f"{rep.get('compress_s', float('nan')):.3f}s (incl. the spectral "
-          f"decay; the process ran {wall:.1f}s beside the other phases), "
+          f"decay; the process ran {wall:.1f}s beside the other phases, "
+          f"{rep.get('waited_s', 0.0):.1f}s of it waiting its turn), "
           f"peak device memory {rep.get('peak_bytes', 0):,} B; launches "
           f"{counts}")
     return rep
@@ -385,10 +428,19 @@ def finish_compression(name: str, child: dict,
 def compress_child(ckpt: str, report: str, serve_args) -> int:
     """The child's side: ``serve --weights tt --save-tt-checkpoint CKPT``
     (two tokens, no verify), its compression's seconds, phases, peak device
-    memory, launch counts and ranks written to ``report`` as JSON."""
+    memory, launch counts and ranks written to ``report`` as JSON.  Leading
+    ``--after REPORT0`` in ``serve_args``: first wait (up to
+    AFTER_TIMEOUT_S) until REPORT0, another child's report, exists."""
     if not torch.cuda.is_available():
         print("[chip_smoke] no CUDA device available", file=sys.stderr)
         return 2
+    t0 = time.perf_counter()
+    if serve_args[:1] == ["--after"]:
+        first, serve_args = Path(serve_args[1]), serve_args[2:]
+        while (not first.exists()
+               and time.perf_counter() - t0 < AFTER_TIMEOUT_S):
+            time.sleep(1.0)
+    waited = time.perf_counter() - t0
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.set_num_threads(1)        # no CPU math here: leave the cores
@@ -413,9 +465,11 @@ def compress_child(ckpt: str, report: str, serve_args) -> int:
            "payload_ratio": info["payload_ratio"],
            "plan": [ex.bucket_launches, ex.serial_params],
            "dense_bytes": info["dense_bytes"], "tt_bytes": info["tt_bytes"],
-           "line": info["line"]}
-    with open(report, "w") as f:
+           "line": info["line"], "waited_s": waited}
+    # written whole, then renamed: a child waiting on it reads it complete
+    with open(report + ".tmp", "w") as f:
         json.dump(rep, f)
+    os.replace(report + ".tmp", report)
     return 0
 
 
@@ -475,11 +529,12 @@ def _on(device, params):
 def _f32_model(model, device):
     """The model in float32 with a float32 decode cache: no bf16 rounding
     of activations, so two runs differ only by float32 summation order."""
-    from repro_torch.models import encdec, rglru, transformer
+    from repro_torch.models import encdec, mamba2, rglru, transformer
     from repro_torch.models.registry import build
     cfg32 = dataclasses.replace(model.cfg, dtype="float32")
     init_cache = {"dense": transformer.init_cache,
                   "moe": transformer.init_cache,
+                  "ssm": mamba2.init_cache,
                   "hybrid": rglru.init_cache,
                   "encdec": encdec.init_cache}[cfg32.family]
     return dataclasses.replace(
@@ -2780,25 +2835,16 @@ ENCDEC_B, ENCDEC_S = 2, 1024     # prefill: 1,024 frames and 1,024 tokens
 ENCDEC_SRC = (16, 257)           # Engine requests' source lengths
 
 
-def encdec_serve(serve_mod, rep: dict) -> dict:
-    """10a: ``serve --weights tt --tt-checkpoint`` from the child's
-    checkpoint (no compression): every leaf loaded equal bit for bit to
-    the payload the child compressed (``leaf_digests``), a flipped byte
-    refused, chain kernels launched with no plain call, the sources
-    encoded; the bf16 verify against reconstruct-then-serve reported."""
+def child_checkpoint_checks(out, rep: dict, what: str):
+    """A run served from a child's checkpoint: every leaf loaded equal bit
+    for bit to the payload the child compressed (``leaf_digests``), and a
+    copy with a flipped byte refused.  Returns (equal, leaves, what the
+    flipped copy raised)."""
     from repro_torch.checkpoint import checkpoint as ckpt
-    args = serve_mod.parse_args(ENCDEC_SERVE_ARGS + [
-        "--weights", "tt", "--tt-checkpoint", rep["ckpt"]])
-    out, secs, counts = _counted(lambda: serve_mod.serve(args))
-    _chains_on_kernels(counts, "encdec serve",
-                       ("tt_contract_2", "tt_contract_3"))
-    check(not counts.get("frob_truncate")
-          and out["info"]["compress_s"] is None,
-          f"encdec serve: compressed ({counts})")
     digests = leaf_digests(out["payload"])
     same = bool(digests) and digests == rep.get("leaf_sha")
-    check(same, "encdec checkpoint: loaded leaves differ from the payload "
-                "the child compressed")
+    check(same, f"{what} checkpoint: loaded leaves differ from the payload "
+                f"the child compressed")
     flipped = rep["ckpt"] + "-flipped"
     shutil.copytree(rep["ckpt"], flipped)
     flip_byte(flipped)
@@ -2809,20 +2855,38 @@ def encdec_serve(serve_mod, rep: dict) -> dict:
         raised = f"CheckpointCorrupt: {e}"
     shutil.rmtree(flipped)
     check(raised.startswith("CheckpointCorrupt"),
-          f"encdec checkpoint: a flipped byte raised {raised}")
+          f"{what} checkpoint: a flipped byte raised {raised}")
+    return same, len(digests), raised
+
+
+def encdec_serve(serve_mod, rep: dict) -> dict:
+    """10a: ``serve --weights tt --tt-checkpoint`` from the child's
+    checkpoint (no compression): every leaf loaded equal bit for bit to
+    the payload the child compressed (``leaf_digests``), a flipped byte
+    refused, chain kernels launched with no plain call, the sources
+    encoded; the bf16 verify against reconstruct-then-serve reported."""
+    args = serve_mod.parse_args(ENCDEC_SERVE_ARGS + [
+        "--weights", "tt", "--tt-checkpoint", rep["ckpt"]])
+    out, secs, counts = _counted(lambda: serve_mod.serve(args))
+    _chains_on_kernels(counts, "encdec serve",
+                       ("tt_contract_2", "tt_contract_3"))
+    check(not counts.get("frob_truncate")
+          and out["info"]["compress_s"] is None,
+          f"encdec serve: compressed ({counts})")
+    same, leaves, raised = child_checkpoint_checks(out, rep, "encdec")
     cfg, info = out["model"].cfg, out["info"]
     check(out["src"].shape == (4, cfg.frontend_len)
           and out["generated"].shape == (4, 16),
           f"encdec serve: sources {out['src'].shape}, tokens "
           f"{out['generated'].shape}")
     res = {"serve_s": secs, "tok_per_s": out["tok_per_s"],
-           "checkpoint_equal": same, "leaves": len(digests),
+           "checkpoint_equal": same, "leaves": leaves,
            "flipped": raised[:90], "verify": out["verify"],
            "launches": counts, "dense_bytes": info["dense_bytes"],
            "tt_bytes": info["tt_bytes"], "payload_ratio": info["payload_ratio"],
            "layers": [cfg.enc_layers, cfg.num_layers]}
     print(f"[chip_smoke] {ENCDEC_ARCH} ({cfg.enc_layers} + {cfg.num_layers} "
-          f"layers) served from its checkpoint in {secs:.1f}s: {len(digests)} "
+          f"layers) served from its checkpoint in {secs:.1f}s: {leaves} "
           f"leaves equal to the child's payload: {same}; flipped byte -> "
           f"{raised[:60]}; decode {out['tok_per_s']:.1f} tok/s; bf16 verify "
           f"(reported) {json.dumps(out['verify'])}; launches {counts}")
@@ -3126,6 +3190,329 @@ def encdec_phase(ops, cases, serve_mod, rep: dict) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# SSM phase: full-width mamba2-1.3b
+# ---------------------------------------------------------------------------
+
+SSM_ARCH = "mamba2-1.3b"
+SSM_LAYERS = 24          # layers served, of 48 (the cut: the script's time)
+SSM_SERVE_ARGS = ["--arch", SSM_ARCH, "--layers", str(SSM_LAYERS),
+                  "--batch", "4", "--prompt-len", "16", "--gen", "16",
+                  "--seed", "0", "--tt-eps", "0.2"]
+SSM_B, SSM_S = 2, 4096           # bf16 prefill throughput
+SSM_GATE_S = 2048                # float32 prefill and eval gates, B = 1
+SSM_STEP_S = 300                 # prefill vs stepped decode: one whole
+                                 # chunk of 256 and a padded tail
+SSM_REQS = 8                     # Engine requests
+
+
+def _ssm_chains(info, quant: bool) -> tuple:
+    """The chain kernels the served leaves' depths launch."""
+    return tuple(sorted({f"tt_contract_{len(cores)}" + ("q" if quant else "")
+                         for _, cores, _ in info["chains"].values()}))
+
+
+def ssm_serve(serve_mod, rep: dict) -> dict:
+    """11a: ``serve --weights tt`` and then ``--weights tt-int8`` from the
+    child's checkpoint (no compression): the tt run's leaves equal bit for
+    bit to the payload the child compressed (``leaf_digests``), a flipped
+    byte refused, exactly w_in and w_out served from cores, every chain on
+    its kernel with no plain call, fused and python drivers giving the same
+    tokens; decode tok/s and the verify numbers (bf16 gap, int8
+    tie-tolerant agreement) reported."""
+    res, keep = {}, None
+    for weights in ("tt", "tt-int8"):
+        args = serve_mod.parse_args(SSM_SERVE_ARGS + [
+            "--weights", weights, "--tt-checkpoint", rep["ckpt"]])
+        out, secs, counts = _counted(lambda: serve_mod.serve(args))
+        info, cfg = out["info"], out["model"].cfg
+        what = f"ssm serve {weights}"
+        _chains_on_kernels(counts, what, _ssm_chains(info, weights != "tt"))
+        check(not counts.get("frob_truncate") and info["compress_s"] is None,
+              f"{what}: compressed ({counts})")
+        check(sorted(info["chains"]) == ["layers.w_in", "layers.w_out"],
+              f"{what}: TT-served leaves {sorted(info['chains'])}")
+        gen = out["generated"]
+        check(gen.shape == (4, 16) and gen.min() >= 0
+              and gen.max() < cfg.vocab_size
+              and bool(torch.isfinite(out["run"]["prompt_logits"]).all()),
+              f"{what}: tokens {gen.shape} out of range or logits not "
+              f"finite")
+        r = {"serve_s": secs, "tok_per_s": out["tok_per_s"],
+             "verify": out["verify"], "launches": counts,
+             "load_s": info["load_s"], "dense_bytes": info["dense_bytes"],
+             "tt_bytes": info["tt_bytes"],
+             "ttq_bytes": info.get("ttq_bytes"),
+             "chains": {k: [v[0], [list(c) for c in v[1]]]
+                        for k, v in info["chains"].items()}}
+        if weights == "tt":
+            same, leaves, raised = child_checkpoint_checks(out, rep, "ssm")
+            r.update(checkpoint_equal=same, leaves=leaves,
+                     flipped=raised[:90],
+                     drivers_agree=drivers_agree(serve_mod, out, what))
+            print(f"[chip_smoke] {SSM_ARCH} ranks: " + json.dumps(
+                {k: list(v) for k, v in info["ranks"].items()}))
+            print(f"[chip_smoke] {SSM_ARCH} bytes: {info['line']}")
+            keep = {k: out[k] for k in ("model", "params", "payload",
+                                        "prompts", "info")}
+        res[weights] = r
+        print(f"[chip_smoke] {SSM_ARCH} ({cfg.num_layers} layers) {weights} "
+              f"served from its checkpoint in {secs:.1f}s: decode "
+              f"{out['tok_per_s']:.1f} tok/s; verify (reported) "
+              f"{json.dumps(out['verify'])}; launches {counts}"
+              + (f"; {r['leaves']} leaves equal to the child's payload: "
+                 f"{r['checkpoint_equal']}; flipped byte -> "
+                 f"{r['flipped'][:60]}" if weights == "tt" else ""))
+        del out
+        torch.cuda.empty_cache()
+    return res, keep
+
+
+class _Spans:
+    """CUDA events around every top-level call of ``mamba2.ssd_chunked``
+    (its padded-tail call inside not counted twice): the device time the
+    SSD's kernels span within a run."""
+
+    def __init__(self):
+        from repro_torch.models import mamba2
+        self.mod, self.orig, self.events, self.depth = (
+            mamba2, mamba2.ssd_chunked, [], 0)
+
+    def __enter__(self):
+        def wrapped(*a, **k):
+            self.depth += 1
+            try:
+                if self.depth > 1:
+                    return self.orig(*a, **k)
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                e0.record()
+                y = self.orig(*a, **k)
+                e1.record()
+                self.events.append((e0, e1))
+                return y
+            finally:
+                self.depth -= 1
+        self.mod.ssd_chunked = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.ssd_chunked = self.orig
+
+    def ms(self) -> float:
+        torch.cuda.synchronize()
+        return sum(a.elapsed_time(b) for a, b in self.events)
+
+
+class _TTCalls:
+    """Counts ``tt_apply`` calls (every TT-served projection goes through
+    ``common.dense_apply`` → ``tt_linear.tt_apply``)."""
+
+    def __init__(self):
+        from repro_torch.core import tt_linear
+        self.mod, self.orig, self.n = tt_linear, tt_linear.tt_apply, 0
+
+    def __enter__(self):
+        def wrapped(*a, **k):
+            self.n += 1
+            return self.orig(*a, **k)
+        self.mod.tt_apply = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.tt_apply = self.orig
+
+
+def _ssm_prefill_bf16(step, params, toks, what: str, tt: bool) -> dict:
+    """One warm-up and one timed bf16 prefill of ``toks``: tok/s, the SSD's
+    share of the run's device time (CUDA events around the prefill and
+    around each ``ssd_chunked``), launches and ``tt_apply`` calls."""
+    step(params, {"tokens": toks})
+    torch.cuda.synchronize()
+    with _Spans() as spans, _TTCalls() as calls:
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        reset_counts()
+        t0 = time.perf_counter()
+        e0.record()
+        logits = step(params, {"tokens": toks})
+        e1.record()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = read_counts()
+        reset_counts()
+    total = e0.elapsed_time(e1)
+    ssd = spans.ms()
+    check(bool(torch.isfinite(logits).all()), f"{what}: logits not finite")
+    b, s = toks.shape
+    print(f"[chip_smoke] {what}: B={b} x S={s} in {secs:.3f}s = "
+          f"{b * s / secs:.0f} tok/s; device span {total:.2f} ms, of it "
+          f"ssd_chunked {ssd:.2f} ms ({ssd / total:.1%}); tt_apply calls "
+          f"{calls.n}; launches {counts}")
+    return {"tok_per_s": b * s / secs, "device_ms": total, "ssd_ms": ssd,
+            "ssd_share": ssd / total, "tt_apply_calls": calls.n,
+            "counts": counts, "tt": tt}
+
+
+def ssm_prefill(keep: dict) -> dict:
+    """11b: bf16 prefill B = SSM_B x S = SSM_S through
+    ``make_prefill_step``, TT-native (exactly two ``tt_apply`` calls a
+    layer, chains on their kernels, no flash launch) and dense
+    (reconstructed): tok/s and the SSD's share of the device time,
+    reported.  Float32 (TT leaves with float32 cores), gated: TT-native vs
+    reconstruct prefill at B = 1 x SSM_GATE_S within F32_TOL of scale;
+    eval losses within 1e-5 relative; every position's logits of the
+    chunked prefill of SSM_STEP_S tokens against the decode cache stepped
+    through them, each within F32_TOL of its scale.  Returns the record and
+    the float32 (model, params) for the Engine."""
+    from repro_torch.core import compression as comp
+    from repro_torch.models import common, mamba2
+    from repro_torch.train.steps import make_eval_step, make_prefill_step
+    model, params = keep["model"], keep["params"]
+    cfg = model.cfg
+    layers = cfg.num_layers
+    res = {}
+    toks = _tokens(cfg.vocab_size, SSM_B, SSM_S)
+    step = make_prefill_step(model)
+    res["bf16_tt"] = _ssm_prefill_bf16(step, params, toks,
+                                       "ssm prefill bf16 tt", True)
+    r = res["bf16_tt"]
+    _prefill_counts(r["counts"], "ssm prefill bf16 tt",
+                    _ssm_chains(keep["info"], False))
+    chain_launches = sum(v for k, v in r["counts"].items()
+                         if k in ("tt_contract_2", "tt_contract_3"))
+    check(r["tt_apply_calls"] == 2 * layers
+          and chain_launches == 2 * layers,
+          f"ssm prefill: {r['tt_apply_calls']} tt_apply calls and "
+          f"{chain_launches} chain launches, want {2 * layers} each (w_in "
+          f"and w_out a layer)")
+    dense = comp.TTCompressor().decompress(keep["payload"])
+    res["bf16_dense"] = _ssm_prefill_bf16(step, dense, toks,
+                                          "ssm prefill bf16 dense", False)
+    del dense, toks
+    torch.cuda.empty_cache()
+
+    m32 = _f32_model(model, DEVICE)
+    tt32, rx32 = f32_params(keep["payload"], "ssm")
+    cfg32 = m32.cfg
+    toks = _tokens(cfg.vocab_size, 1, SSM_GATE_S, seed=3)
+    step32 = make_prefill_step(m32)
+    with _TTCalls() as calls:
+        lt, _, counts = _counted(lambda: step32(tt32, {"tokens": toks}))
+    _prefill_counts(counts, "ssm prefill f32 tt",
+                    _ssm_chains(keep["info"], False))
+    check(calls.n == 2 * layers, f"ssm prefill f32: {calls.n} tt_apply "
+                                 f"calls, want {2 * layers}")
+    lr = step32(rx32, {"tokens": toks})
+    d, scale = _gap(lt, lr)
+    check(d <= F32_TOL * scale, f"ssm f32 TT-native vs reconstruct prefill: "
+                                f"max|d| {d:.3e} over {F32_TOL} * scale "
+                                f"{scale:.3e}")
+    res["f32_tt_vs_rx"] = d / scale
+    batch = {"tokens": toks, "labels": torch.roll(toks, -1, 1)}
+    loss = {name: float(make_eval_step(m32)(p, batch)["loss"])
+            for name, p in (("tt", tt32), ("rx", rx32))}
+    rel = abs(loss["tt"] - loss["rx"]) / abs(loss["rx"])
+    check(math.isfinite(loss["rx"]) and rel <= 1e-5,
+          f"ssm eval f32: losses {loss} differ by {rel:.3e} relative")
+    res["f32_eval_loss"], res["f32_eval_rel"] = loss, rel
+    del rx32
+    torch.cuda.empty_cache()
+
+    toks = _tokens(cfg.vocab_size, 1, SSM_STEP_S, seed=4)
+    with torch.inference_mode():
+        want = common.unembed(mamba2.forward(tt32, toks, cfg32), tt32.embed,
+                              cfg32.logit_softcap,
+                              real_vocab=cfg32.vocab_size)[0]
+        cache = m32.init_cache(1, SSM_STEP_S)
+        worst, t0 = 0.0, time.perf_counter()
+        for t in range(SSM_STEP_S):
+            got, cache = m32.decode_step(tt32, cache, toks[:, t:t + 1])
+            dd, sc = _gap(got[0], want[t])
+            worst = max(worst, dd / sc)
+        secs = time.perf_counter() - t0
+    check(worst <= F32_TOL, f"ssm f32: chunked prefill vs stepped decode, "
+                            f"worst step max|d|/scale {worst:.3e}")
+    res["f32_prefill_vs_decode"] = worst
+    res["f32_decode_step_ms"] = secs / SSM_STEP_S * 1e3
+    print(f"[chip_smoke] ssm f32 TT-native ({layers} layers): vs reconstruct "
+          f"prefill B=1 x {SSM_GATE_S} max|d|/scale {res['f32_tt_vs_rx']:.3e} "
+          f"(gate {F32_TOL}); eval losses {json.dumps(loss)}, {rel:.3e} "
+          f"relative (gate 1e-5); chunked prefill vs {SSM_STEP_S} decode "
+          f"steps, worst step max|d|/scale {worst:.3e} (gate {F32_TOL}), "
+          f"{res['f32_decode_step_ms']:.2f} ms a step")
+    del want, cache
+    torch.cuda.empty_cache()
+    return res, m32, tt32
+
+
+def ssm_engine(engine_mod, keep: dict, m32, tt32) -> dict:
+    """11c: the Engine (SERVE_SLOTS slots, chunks of SERVE_CHUNK) on
+    SSM_REQS requests, greedy and sampled mixed.  Float32, gated: every
+    completion's tokens equal to its isolated ``generate`` run's, in both
+    admission modes; scan == boundary byte for byte (tokens and prompt
+    logits); chains on their kernels; no host sync inside a chunk.  bf16
+    ``tt`` (as served), scan: tok/s, reported."""
+    stream = serve_stream(m32.cfg.vocab_size, n=SSM_REQS, seed=28,
+                          plen=(3, 17), gen=(4, 17))
+    iso = isolated_runs(engine_mod, m32, tt32, stream)
+    res, runs = {}, {}
+    for admission in ("scan", "boundary"):
+        r = engine_stream(engine_mod, m32, tt32, stream, admission,
+                          no_sync=True)
+        runs[admission] = r
+        bad = [i for i, (c, t) in enumerate(zip(r["comps"], iso))
+               if not np.array_equal(c.tokens, t)]
+        check(not bad, f"ssm engine f32 {admission}: requests {bad} differ "
+                       f"from their isolated runs")
+        _chains_on_kernels(r["counts"], f"ssm engine f32 {admission}",
+                           _ssm_chains(keep["info"], False))
+        res[f"f32_{admission}"] = {
+            "equal_isolated": len(stream) - len(bad), "steps": r["steps"],
+            "occupancy": r["occupancy"], "tok_per_s": r["tok_per_s"],
+            "chunks_no_sync": r["chunks_no_sync"], "launches": r["counts"]}
+        print(f"[chip_smoke] ssm engine f32 {admission}: "
+              f"{len(stream) - len(bad)}/{len(stream)} equal to isolated, "
+              f"{r['steps']} steps, occupancy {r['occupancy']:.3f}, "
+              f"{r['tok_per_s']:.1f} tok/s, {r['chunks_no_sync']} chunks "
+              f"under sync-debug 'error'")
+    same = all(np.array_equal(a.tokens, b.tokens)
+               and np.array_equal(a.prompt_logits, b.prompt_logits)
+               for a, b in zip(runs["scan"]["comps"],
+                               runs["boundary"]["comps"]))
+    check(same, "ssm engine f32: scan and boundary admission differ")
+    res["scan_equals_boundary"] = same
+    r = engine_stream(engine_mod, keep["model"], keep["params"], stream,
+                      "scan")
+    res["tt"] = {"tok_per_s": r["tok_per_s"], "occupancy": r["occupancy"],
+                 "steps": r["steps"], "wall_s": r["wall_s"]}
+    print(f"[chip_smoke] ssm engine tt (bf16 activations, scan): "
+          f"{r['tok_per_s']:.1f} tok/s, occupancy {r['occupancy']:.3f}, "
+          f"{r['steps']} steps in {r['wall_s']:.2f}s (reported)")
+    return res
+
+
+def ssm_phase(ops, cases, serve_mod, rep: dict) -> dict:
+    """11: full-width mamba2-1.3b from the child's checkpoint: serve tt and
+    tt-int8 (11a), prefill and the float32 gates (11b), the Engine (11c)
+    and the path's stored chains at B in {1, 4, 64} and a prefill's rows
+    (as 3.)."""
+    t0 = time.perf_counter()
+    res = {"compression": {k: rep.get(k) for k in (
+        "compress_s", "breakdown", "peak_bytes", "ranks", "plan",
+        "dense_bytes", "tt_bytes", "wall_s")}}
+    res["serve"], keep = ssm_serve(serve_mod, rep)
+    res["prefill"], m32, tt32 = ssm_prefill(keep)
+    res["engine"] = ssm_engine(serve_mod.engine_mod, keep, m32, tt32)
+    info = keep["info"]
+    del m32, tt32, keep
+    torch.cuda.empty_cache()
+    res["chains"] = stored_phase(ops, cases, chain_shapes(info), SSM_ARCH,
+                                 batch_sizes=(1, 4, 64, SSM_B * SSM_S))
+    res["secs"] = time.perf_counter() - t0
+    return res
+
+
 ENGINE_ROWS = [
     ("panel_factor", ("panel",), "householder/csrc/householder.cu",
      "householder/kernel.py:99", ("panel_factor",)),
@@ -3183,6 +3570,10 @@ def main() -> int:
             "recurrentgemma-2b", HYBRID_SERVE_ARGS, work)
         children[ENCDEC_ARCH] = start_compression(
             ENCDEC_ARCH, ENCDEC_SERVE_ARGS, work)
+        # mamba2-1.3b after seamless: four compressions at once beside
+        # the TTD-engine phase run the card out of memory
+        children[SSM_ARCH] = start_compression(
+            SSM_ARCH, SSM_SERVE_ARGS, work, after=children[ENCDEC_ARCH])
         return run_phases(t_start, work, children, ops, cases, fa_ops,
                           serve_mod)
     finally:
@@ -3197,13 +3588,14 @@ def main() -> int:
 def run_phases(t_start, work, children, ops, cases, fa_ops,
                serve_mod) -> int:
     """Every phase after the build.  While ``children`` compress
-    recurrentgemma-2b, qwen3-8b and seamless-m4t-large-v2, the main path, the checkpoint, the
+    recurrentgemma-2b, qwen3-8b, seamless-m4t-large-v2 and mamba2-1.3b,
+    the main path, the checkpoint, the
     float32 gates, the engine's compressions, the serving phase and
     qwen3-8b's serve run
     (their seconds and tok/s taken beside the children's work); the timed
     kernel checks, the prefill throughputs and the phases after them run
-    once the children they need have ended; the encoder-decoder phase
-    runs last."""
+    once the children they need have ended; the encoder-decoder and SSM
+    phases run last."""
     phase_s = {}
     ckpt_dir = str(Path(work) / ARCH)
     t0 = time.perf_counter()
@@ -3320,6 +3712,7 @@ def run_phases(t_start, work, children, ops, cases, fa_ops,
     t0 = time.perf_counter()
     compressed[ENCDEC_ARCH] = finish_compression(ENCDEC_ARCH,
                                                  children[ENCDEC_ARCH])
+    compressed[SSM_ARCH] = finish_compression(SSM_ARCH, children[SSM_ARCH])
     phase_s["waiting for the compressions"] += time.perf_counter() - t0
     peaks = {k: v.get("peak_bytes", 0) for k, v in compressed.items()}
     card_bytes = torch.cuda.get_device_properties(0).total_memory
@@ -3332,6 +3725,10 @@ def run_phases(t_start, work, children, ops, cases, fa_ops,
     encdec = encdec_phase(ops, cases, serve_mod, compressed[ENCDEC_ARCH])
     phase_s["encdec"] = encdec["secs"]
     print(f"[chip_smoke] encdec phase {phase_s['encdec']:.1f}s")
+    torch.cuda.empty_cache()
+    ssm = ssm_phase(ops, cases, serve_mod, compressed[SSM_ARCH])
+    phase_s["ssm"] = ssm["secs"]
+    print(f"[chip_smoke] ssm phase {phase_s['ssm']:.1f}s")
 
     fwd_s = {k: v for k, v in phase_s.items() if k.startswith("forward")}
     print(f"[chip_smoke] forward and checkpoint phase "
@@ -3478,6 +3875,32 @@ def run_phases(t_start, work, children, ops, cases, fa_ops,
                      f"shape (B 2, S 1024, 16 Q and 16 KV heads, D 64, "
                      f"causal); launches per prefill (one a decoder layer)",
         })
+    for name in sorted(ssm["chains"]):
+        r = ssm["chains"][name]
+        weights = "tt-int8" if name.endswith("q") else "tt"
+        kernels.append({
+            "name": f"{name}_ssm", "route": "cuda", "source": chain_src,
+            "replaces": {"tt_contract_2": "src/repro/kernels/tt_contract/kernel.py:138",
+                         "tt_contract_3": "src/repro/kernels/tt_contract/kernel.py:162",
+                         "tt_contract_2q": "src/repro/kernels/tt_contract/kernel.py:190",
+                         "tt_contract_3q": "src/repro/kernels/tt_contract/kernel.py:219"}[name],
+            "launches": ssm["serve"][weights]["launches"].get(name, 0),
+            "prefill_launches": ssm["prefill"]["bf16_tt"]["counts"].get(
+                name, 0),
+            "max_abs_err": r["max_abs_err"],
+            "max_abs_err_bf16_x": r["max_abs_err_bf16_x"],
+            "ms": r["ms"], "graph_ms": r["graph_ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": bound_by(r), "library_ms": r["library_ms"],
+            "timed": f"one tt_apply call from the stored tensors, summed "
+                     f"over one {SSM_ARCH} layer's calls (w_in 2,048 -> "
+                     f"8,512, w_out 4,096 -> 2,048) at B=4, bf16 x, "
+                     f"storage as served; launches: the {weights} serve "
+                     f"run (B 4, prompt 16, gen 16) and one bf16 prefill "
+                     f"(tt storage)",
+        })
+    print(f"[chip_smoke] ssm summary: " + json.dumps({
+        k: v for k, v in ssm.items() if k != "chains"}))
     print(f"[chip_smoke] encdec summary: " + json.dumps({
         k: v for k, v in encdec.items() if k not in ("flash", "chains")}))
     print(f"[chip_smoke] hybrid stored chains: " + json.dumps(

@@ -194,6 +194,24 @@ def save_tt_payload(directory: str, payload, extra: Optional[Dict] = None,
     return directory
 
 
+def _committed(directory: str) -> str:
+    """``directory``, or its ``.old`` swap when an interrupted save left
+    only that one committed."""
+    if not os.path.exists(os.path.join(directory, "_COMMITTED")):
+        old = directory + ".old"        # an interrupted save's swap
+        if os.path.exists(os.path.join(old, "_COMMITTED")):
+            return old
+        raise FileNotFoundError(f"no committed TT payload in {directory}")
+    return directory
+
+
+def read_manifest(directory: str) -> Dict:
+    """The manifest of the committed payload in ``directory`` (its family,
+    storage format and leaves), no array read."""
+    with open(os.path.join(_committed(directory), "tt_manifest.json")) as f:
+        return json.load(f)
+
+
 def load_tt_payload(directory: str, like, verify: bool = True,
                     device=None) -> Tuple[Any, Dict]:
     """Restore a TT payload into the tree structure of ``like`` (the params
@@ -206,14 +224,8 @@ def load_tt_payload(directory: str, like, verify: bool = True,
     checksums loads unverified.  Leaves resolve by name, so a payload and a
     tree that differ in a name raise ``ValueError``."""
     dev = resolve_device(device)
-    if not os.path.exists(os.path.join(directory, "_COMMITTED")):
-        old = directory + ".old"        # an interrupted save's swap
-        if os.path.exists(os.path.join(old, "_COMMITTED")):
-            directory = old
-        else:
-            raise FileNotFoundError(f"no committed TT payload in {directory}")
-    with open(os.path.join(directory, "tt_manifest.json")) as f:
-        manifest = json.load(f)
+    directory = _committed(directory)
+    manifest = read_manifest(directory)
     npz_path = os.path.join(directory, "tt_payload.npz")
     named = _named(like)
     by_name = {m["name"]: m for m in manifest["leaves"]}

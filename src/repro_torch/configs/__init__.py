@@ -4,15 +4,19 @@ from __future__ import annotations
 
 import importlib
 
-from repro_torch.configs.base import HybridConfig, ModelConfig, MoEConfig
+from repro_torch.configs.base import (
+    HybridConfig, ModelConfig, MoEConfig, SSMConfig,
+)
 
-# canonical names → module ids (dense, MoE, hybrid and encoder-decoder);
+# canonical names → module ids (dense, MoE, SSM, hybrid and
+# encoder-decoder);
 # the other archs of the JAX zoo come with their families (ROADMAP.md
 # queue 1, item 7b)
 NAME_TO_MODULE = {
     "qwen1.5-0.5b": "qwen1p5_0p5b",
     "recurrentgemma-2b": "recurrentgemma_2b",
     "olmoe-1b-7b": "olmoe_1b_7b",
+    "mamba2-1.3b": "mamba2_1p3b",
     "qwen3-8b": "qwen3_8b",
     "qwen3-32b": "qwen3_32b",
     "dbrx-132b": "dbrx_132b",
@@ -31,4 +35,4 @@ def get_config(name: str) -> ModelConfig:
 
 
 __all__ = ["HybridConfig", "ModelConfig", "MoEConfig", "NAME_TO_MODULE",
-           "get_config"]
+           "SSMConfig", "get_config"]

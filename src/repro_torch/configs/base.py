@@ -1,7 +1,7 @@
 """Model configuration: the ``ModelConfig`` fields the ported families read.
 
-A copy of the dense-, MoE-, hybrid- and encoder-decoder-family parts of
-the JAX package's ``configs/base.py`` (the port never imports that
+A copy of the dense-, MoE-, SSM-, hybrid- and encoder-decoder-family
+parts of the JAX package's ``configs/base.py`` (the port never imports that
 package).  The other families and the training/sharding knobs (the MoE
 ones ``opt_moe_ep`` and ``opt_moe_a2a`` included: TPU-mesh layouts) come
 with later slices.
@@ -22,6 +22,15 @@ class MoEConfig:
 
 
 @dataclass(frozen=True)
+class SSMConfig:
+    state_dim: int = 128          # N — SSD state size
+    head_dim: int = 64            # P — channels per SSM head
+    expand: int = 2               # d_inner = expand * d_model
+    conv_width: int = 4
+    chunk: int = 256              # SSD chunk length
+
+
+@dataclass(frozen=True)
 class HybridConfig:
     """recurrentgemma-style mixed blocks."""
     pattern: Tuple[str, ...] = ("rglru", "rglru", "attn")
@@ -32,7 +41,7 @@ class HybridConfig:
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                   # dense | moe | hybrid | encdec (ported)
+    family: str                   # dense | moe | ssm | hybrid | encdec (ported)
     num_layers: int
     d_model: int
     num_heads: int
@@ -51,6 +60,7 @@ class ModelConfig:
     window: Optional[int] = None
     global_every: Optional[int] = None
     moe: Optional[MoEConfig] = None
+    ssm: Optional[SSMConfig] = None
     hybrid: Optional[HybridConfig] = None
     # encoder-decoder
     enc_layers: int = 0
@@ -84,6 +94,8 @@ class ModelConfig:
         if self.moe:
             base["moe"] = MoEConfig(num_experts=8, num_experts_per_tok=2,
                                     d_ff=64)
+        if self.ssm:
+            base["ssm"] = SSMConfig(state_dim=16, head_dim=16, chunk=32)
         if self.hybrid:
             base["hybrid"] = HybridConfig(
                 pattern=self.hybrid.pattern, lru_width=128, window=32)

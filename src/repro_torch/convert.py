@@ -6,10 +6,10 @@ Both take ``{dot-path: ...}`` dictionaries in the JAX package's path naming
 
   * ``params_from_numpy(flat, cfg, device)`` — ``{path: np.ndarray}`` →
     the port's params of ``cfg.family`` (``TransformerParams`` for the
-    dense and MoE families, ``GriffinParams``, ``EncDecParams``) in
-    ``cfg.dtype`` (Λ stays
-    float32, as the reference keeps it); a layer's FFN subtree must be the
-    one its config has (``mlp``, or ``moe`` when ``cfg.moe`` is set);
+    dense and MoE families, ``MambaParams``, ``GriffinParams``,
+    ``EncDecParams``) in ``cfg.dtype`` (Λ and the SSM's ``a_log``,
+    ``d_skip`` and ``dt_bias`` stay float32, as the reference keeps
+    them); a layer's FFN subtree must be the one its config has (``mlp``, or ``moe`` when ``cfg.moe`` is set);
   * ``payload_from_numpy(flat, device)`` — ``{path: {"kind": "tt" |
     "raw", "cores": [np.ndarray, ...] | "raw": np.ndarray, "orig_shape",
     "orig_dtype", "eps"}}`` → a tree of ``CompressedParam`` shaped like the
@@ -36,6 +36,7 @@ from repro_torch.models.attention import AttnParams
 from repro_torch.models.encdec import (
     DecLayerParams, EncDecParams, EncLayerParams,
 )
+from repro_torch.models.mamba2 import MambaLayerParams, MambaParams
 from repro_torch.models.mlp import MLPParams, MoEParams
 from repro_torch.models.rglru import (
     AttnLayerParams, GriffinParams, RGLRULayerParams, TripleParams,
@@ -45,6 +46,7 @@ from repro_torch.models.transformer import LayerParams, TransformerParams
 # the NamedTuple of each subtree field: every other field is a leaf
 _SUBTREES = {
     TransformerParams: {"layers": LayerParams},
+    MambaParams: {"layers": MambaLayerParams},
     LayerParams: {"attn": AttnParams, "mlp": MLPParams, "moe": MoEParams},
     GriffinParams: {"triples": TripleParams, "tail": RGLRULayerParams},
     TripleParams: {"r1": RGLRULayerParams, "r2": RGLRULayerParams,
@@ -58,17 +60,32 @@ _SUBTREES = {
                      "mlp": MLPParams},
 }
 _ROOTS = {"dense": TransformerParams, "moe": TransformerParams,
-          "hybrid": GriffinParams, "encdec": EncDecParams}
-_F32_LEAVES = ("lam",)       # float32 whatever the model's dtype
+          "ssm": MambaParams, "hybrid": GriffinParams, "encdec": EncDecParams}
+# float32 whatever the model's dtype
+_F32_LEAVES = ("lam", "a_log", "d_skip", "dt_bias")
+
+
+def _fits(cls, names) -> bool:
+    """Whether a dot path (split into ``names``) ends at a leaf field of
+    ``cls``'s skeleton."""
+    head, rest = names[0], names[1:]
+    if head not in cls._fields:
+        return False
+    kid = _SUBTREES.get(cls, {}).get(head)
+    if kid is None:
+        return not rest
+    return bool(rest) and _fits(kid, rest)
 
 
 def _root_of(flat: Mapping[str, Any]):
-    """The params type whose fields hold every top-level name of ``flat``."""
-    top = {path.split(".")[0] for path in flat}
+    """The params type whose skeleton holds every path of ``flat`` (the
+    dense and SSM roots share their top-level names; their layers do
+    not)."""
     for root in _ROOTS.values():
-        if top <= set(root._fields):
+        if all(_fits(root, path.split(".")) for path in flat):
             return root
-    raise ValueError(f"top-level names {sorted(top)} fit no ported family")
+    top = sorted({path.split(".")[0] for path in flat})
+    raise ValueError(f"paths under {top} fit no ported family")
 
 
 def _assemble(flat: Mapping[str, Any], make: Callable[[str, Any], Any],

@@ -59,7 +59,8 @@ BATCHED_EC = ((64, 1), (64, 4), (64, 64), (3, 9))
 # stored chains (split, [first core (r_s, n1, r1), tail cores]) of the main
 # paths at full width, eps 0.2, seed 0 (the ranks chip_smoke.py's
 # compressions give): qwen1.5-0.5b, olmoe-1b-7b's attention,
-# recurrentgemma-2b; and ragged ones (no dimension a multiple of a tile)
+# recurrentgemma-2b, mamba2-1.3b (w_in's 8,512 outputs: a multiple of 64,
+# not of 128); and ragged ones (no dimension a multiple of a tile)
 STORED_SHAPES = {
     "qwen1.5-0.5b wq/wk/wv": (1, [(24, 1024, 417), (417, 16, 18), (18, 64, 1)]),
     "qwen1.5-0.5b wo": (2, [(24, 16, 323), (323, 64, 38), (38, 1024, 1)]),
@@ -72,6 +73,8 @@ STORED_SHAPES = {
     "recurrentgemma-2b wo": (2, [(8, 10, 79), (79, 256, 45), (45, 2560, 1)]),
     "recurrentgemma-2b mlp gate/up": (1, [(8, 2560, 31), (31, 7680, 1)]),
     "recurrentgemma-2b mlp down": (1, [(8, 7680, 31), (31, 2560, 1)]),
+    "mamba2-1.3b w_in": (1, [(48, 2048, 31), (31, 8512, 1)]),
+    "mamba2-1.3b w_out": (1, [(48, 4096, 31), (31, 2048, 1)]),
 }
 RAGGED_STORED = {
     "ragged depth 2": (1, [(3, 70, 5), (5, 300, 1)]),

@@ -300,8 +300,10 @@ class Engine:
     occupant's memory.  The encode runs on the host's schedule between
     chunks, so such a family takes boundary admission only.
 
-    Families: dense, hybrid, MoE (token-only: ``src_tokens`` raises) and
-    encoder-decoder.  MoE serves, but staggered == isolated is not
+    Families: dense, SSM, hybrid, MoE (token-only: ``src_tokens`` raises)
+    and encoder-decoder.  The SSM's and the hybrid's recurrent state and
+    conv history are zeroed with the slot at admission; a free slot's
+    state runs on in lockstep until then, its rows discarded.  MoE serves, but staggered == isolated is not
     promised there (expert capacity couples the rows of a batch;
     ``mlp.moe_apply``).
     """

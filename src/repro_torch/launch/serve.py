@@ -21,9 +21,9 @@ Two modes share one model setup (``--weights``/``--tt-*`` work in both):
 
 ``--arch`` is any ported config (``repro_torch.configs.NAME_TO_MODULE``:
 qwen1.5-0.5b of the dense family, olmoe-1b-7b of the MoE family,
-recurrentgemma-2b of the hybrid family, seamless-m4t-large-v2 of the
-encoder-decoder family); every family serves through the same ``Model``
-API.  In batch mode an encoder-decoder row also gets a random source of
+mamba2-1.3b of the SSM family, recurrentgemma-2b of the hybrid family,
+seamless-m4t-large-v2 of the encoder-decoder family); every family serves
+through the same ``Model`` API.  In batch mode an encoder-decoder row also gets a random source of
 ``frontend_len`` tokens from ``--seed``, encoded into its memory before
 decode; in server mode a request brings its own ``src_tokens``.
 
@@ -129,19 +129,21 @@ def _compress(model, args):
 
 
 def _load_checkpoint(model, args, cfg):
-    """The payload of ``--tt-checkpoint`` on the model's device, checked
-    against the arch's family; ``like`` is the model's own params tree, as
-    the reference's.  Returns (payload, report, seconds)."""
+    """The payload of ``--tt-checkpoint`` on the model's device; ``like``
+    is the model's own params tree, as the reference's.  A manifest naming
+    another family is refused before any array is read (the trees of two
+    families differ, so the load would only name the mismatched leaves).
+    Returns (payload, report, seconds)."""
     t0 = time.perf_counter()
-    like = model.init(args.seed)
-    payload, manifest = _ckpt.load_tt_payload(args.tt_checkpoint, like=like,
-                                              device=model.device)
-    del like
-    ck_family = manifest.get("family")
+    ck_family = _ckpt.read_manifest(args.tt_checkpoint).get("family")
     if ck_family is not None and ck_family != cfg.family:
         raise ValueError(
             f"TT checkpoint was compressed from family {ck_family!r}, "
             f"cannot serve arch family {cfg.family!r}")
+    like = model.init(args.seed)
+    payload, _ = _ckpt.load_tt_payload(args.tt_checkpoint, like=like,
+                                       device=model.device)
+    del like
     return payload, _comp.payload_report(payload), time.perf_counter() - t0
 
 

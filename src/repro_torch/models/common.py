@@ -3,7 +3,7 @@
 Port of the serving subset of the JAX package's ``models/common.py``:
 
   * building blocks — ``rms_norm``, ``apply_rope``, ``activate``,
-    initializers, ``unembed``, ``cross_entropy_loss``, and ``dense_apply``
+    ``causal_conv``, initializers, ``unembed``, ``cross_entropy_loss``, and ``dense_apply``
     / ``expert_apply``, the raw-vs-TT weight dispatch points every
     projection and every expert bank goes through;
   * TT-native serving — the per-family rule registry and
@@ -85,6 +85,19 @@ def activate(x: torch.Tensor, act: str) -> torch.Tensor:
     if act == "relu":
         return F.relu(x)
     raise ValueError(f"unknown activation {act}")
+
+
+def causal_conv(x: torch.Tensor, w: torch.Tensor,
+                b: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv along axis 1 (the hybrid and SSM blocks'):
+    x (B, S, C), w (W, C), b (C,).  The taps are summed in order in the
+    promoted dtype of x and w, as the reference sums them."""
+    width, s = w.shape[0], x.shape[1]
+    xp = F.pad(x, (0, 0, width - 1, 0))
+    out = 0
+    for i in range(width):
+        out = out + xp[:, i: i + s, :] * w[i]
+    return out + b
 
 
 def dense_apply(x: torch.Tensor, w, in_ndim: int = 1) -> torch.Tensor:
@@ -414,6 +427,7 @@ def zero_slot_leaf(leaf: torch.Tensor, i: int) -> torch.Tensor:
     family): the only 1-D leaves are the per-slot counters ``pos`` and the
     encoder-decoder's ``mem_len``; every other leaf stacks (L, B, ...) with
     the slot on axis 1 (``transformer.DecodeCache`` K/V,
+    ``mamba2.MambaCache`` SSM state and conv history,
     ``rglru.GriffinCache`` state, conv history and ring,
     ``encdec.EncDecCache`` K/V and memory K/V).  Zeroing an encoder-decoder
     slot leaves ``mem_len`` at 0, every memory row masked: it decodes as

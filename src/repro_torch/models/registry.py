@@ -6,7 +6,8 @@
   init_cache(batch, max_len) -> cache
   decode_step(params, cache, tokens) -> (logits, cache)
 
-for the dense, MoE, hybrid and encoder-decoder families.  ``impl`` is the
+for the dense, MoE, SSM, hybrid and encoder-decoder families (the SSM
+family has no attention: ``impl`` changes nothing there).  ``impl`` is the
 reference's: ``"xla"`` runs the plain attention path, ``"pallas"`` the
 hand-written flash kernel where the reference's would (the hybrid family's
 attention layers and the encoder-decoder's decoder self-attention; the
@@ -33,6 +34,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import encdec as encdec_mod
+from repro_torch.models import mamba2 as mamba_mod
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import transformer as tfm
 
@@ -64,6 +66,21 @@ def _build_transformer(cfg: ModelConfig, device: torch.device) -> Model:
         init_cache=lambda batch, max_len: tfm.init_cache(
             cfg, batch, max_len, device),
         decode_step=lambda p, c, t: tfm.decode_step(p, c, t, cfg),
+    )
+
+
+def _build_mamba(cfg: ModelConfig, device: torch.device) -> Model:
+    return Model(
+        cfg=cfg, device=device,
+        init=lambda seed: mamba_mod.init(seed, cfg, device),
+        prefill=lambda p, b, impl="xla": mamba_mod.prefill(
+            p, b["tokens"], cfg, impl=impl),
+        loss_fn=lambda p, b, impl="xla": mamba_mod.loss_fn(
+            p, b, cfg, impl=impl),
+        # bf16 conv history whatever the weights' dtype, as the reference's
+        init_cache=lambda batch, max_len: mamba_mod.init_cache(
+            cfg, batch, max_len, device),
+        decode_step=lambda p, c, t: mamba_mod.decode_step(p, c, t, cfg),
     )
 
 
@@ -102,7 +119,8 @@ def _build_encdec(cfg: ModelConfig, device: torch.device) -> Model:
 
 
 _BUILDERS = {"dense": _build_transformer, "moe": _build_transformer,
-             "hybrid": _build_griffin, "encdec": _build_encdec}
+             "ssm": _build_mamba, "hybrid": _build_griffin,
+             "encdec": _build_encdec}
 
 
 def build(cfg: ModelConfig, device=None) -> Model:

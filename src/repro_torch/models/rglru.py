@@ -161,22 +161,11 @@ def rg_lru_scan(x, gates_r, gates_i, lam) -> torch.Tensor:
     return b
 
 
-def _conv1d(x, w, b):
-    """Causal depthwise conv over S: x (B, S, R), w (W, R), b (R,), in x's
-    dtype (the taps summed in order, as the reference)."""
-    width, s = w.shape[0], x.shape[1]
-    xp = F.pad(x, (0, 0, width - 1, 0))
-    out = 0
-    for i in range(width):
-        out = out + xp[:, i: i + s, :] * w[i]
-    return out + b
-
-
 def _rglru_block(x, lp: RGLRULayerParams, cfg):
     h = common.rms_norm(x, lp.ln1, cfg.norm_eps)
     main = common.dense_apply(h, lp.w_x)
     gate = common.activate(common.dense_apply(h, lp.w_gate).float(), "gelu")
-    conv = _conv1d(main, lp.conv_w, lp.conv_b).float()
+    conv = common.causal_conv(main, lp.conv_w, lp.conv_b).float()
     # float32 activations: dense_apply promotes the gate weights to match
     gr = torch.sigmoid(common.dense_apply(conv, lp.w_rg) + lp.b_rg.float())
     gi = torch.sigmoid(common.dense_apply(conv, lp.w_ig) + lp.b_ig.float())

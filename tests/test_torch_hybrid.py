@@ -3,7 +3,7 @@
 Reduced recurrentgemma in float32 with 5 layers (one (rglru, rglru, attn)
 triple plus a 2-layer rglru tail), window 32, S = 128 > window: the same
 numpy weights (norms and biases bumped off zero) and tokens go through both
-packages' pieces (``rg_lru_scan``, ``_conv1d``, ``_rglru_block``,
+packages' pieces (``rg_lru_scan``, ``common.causal_conv``, ``_rglru_block``,
 ``causal_attend``), the whole model (``forward``, ``prefill``,
 ``loss_fn``) under both ``impl`` values, TT-native prefill from one
 payload, and ``decode_step`` past the ring buffer's wrap.
@@ -112,7 +112,7 @@ def test_conv1d_and_rglru_block_match_jax(pair):
     jlp = jax.tree.map(lambda a: a[0], params.triples.r1)
     lp = common.layer_at(pparams.triples.r1, 0)
     ref = jax_rglru._conv1d(jnp.asarray(x), jlp.conv_w, jlp.conv_b)
-    got = rglru._conv1d(torch.from_numpy(x), lp.conv_w, lp.conv_b)
+    got = common.causal_conv(torch.from_numpy(x), lp.conv_w, lp.conv_b)
     assert_close_scaled(got, np.asarray(ref), PIECE_TOL)
     ref = jax.jit(lambda xx, lp: jax_rglru._rglru_block(xx, lp, jmodel.cfg))(
         jnp.asarray(x), jlp)

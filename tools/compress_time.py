@@ -7,8 +7,8 @@ of a given checkout — to compare two checkouts on one card.
 
 ``--src`` is the ``src`` directory whose ``repro_torch`` is imported
 (default: this checkout's); ``--arch`` the config (default qwen1.5-0.5b;
-recurrentgemma-2b, olmoe-1b-7b and seamless-m4t-large-v2 are the hybrid,
-MoE and encoder-decoder paths' compressions); ``--layers`` cuts the depth
+recurrentgemma-2b, olmoe-1b-7b, seamless-m4t-large-v2 and mamba2-1.3b
+are the hybrid, MoE, encoder-decoder and SSM paths' compressions); ``--layers`` cuts the depth
 (an encoder-decoder's encoder too), every width kept.  The weights are ``serve --weights tt``'s: seed 0, its
 spectral decay, compressed at eps 0.2 with ``min_size=8192``.  Prints one
 JSON line: the seconds of ``compress`` (synchronized; neither the decay nor
