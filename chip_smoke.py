@@ -258,7 +258,9 @@
       {1, 4, 2,048} (as 3.).
 
 11. SSM phase (``models/mamba2.py``: chunked SSD prefill, O(1)-state
-   decode), last, from a fourth child compression (``serve --arch
+   decode; 11a-c after the serving phase, while qwen3-8b's and
+   recurrentgemma-2b's children still compress: their gates hold beside
+   them; 11d-e last), from a fourth child compression (``serve --arch
    mamba2-1.3b --weights tt --save-tt-checkpoint``, started with the
    other three; it waits for seamless's to end before it compresses:
    four at once beside the TTD-engine phase run the card out of
@@ -272,19 +274,20 @@
       w_in and w_out served from cores, every chain on its kernel with no
       plain call, fused == python driver tokens; decode tok/s and the
       verify numbers reported;
-   b. bf16 prefill B = 2 x S = 4,096 (TT-native and dense): tok/s and the
-      share of the device time in ``ssd_chunked`` (CUDA events), reported;
-      exactly two ``tt_apply`` calls a layer, no flash launch.  Float32
-      (TT leaves with float32 cores), gated: TT-native vs reconstruct
-      prefill (B 1 x 2,048) within F32_TOL of scale, eval losses within
-      1e-5 relative, and every position's logits of the chunked prefill
-      of 300 tokens (a chunk of 256 and a padded tail) against the decode
-      cache stepped through them, each within F32_TOL of its scale;
+   b. float32 (TT leaves with float32 cores), gated: TT-native vs
+      reconstruct prefill (B 1 x 2,048) within F32_TOL of scale, eval
+      losses within 1e-5 relative, and every position's logits of the
+      chunked prefill of 300 tokens (a chunk of 256 and a padded tail)
+      against the decode cache stepped through them, each within F32_TOL
+      of its scale;
    c. the Engine (4 slots, chunks of 8, 8 requests, greedy and sampled
       mixed) in float32: tokens equal to the isolated runs' in both
       admission modes, scan == boundary byte for byte, chains on their
       kernels, no host sync inside a chunk; bf16 ``tt`` tok/s reported;
-   d. the path's stored chains (w_in 2,048 -> 8,512, w_out 4,096 ->
+   d. bf16 prefill B = 2 x S = 4,096 (TT-native and dense): tok/s and the
+      share of the device time in ``ssd_chunked`` (CUDA events), reported;
+      exactly two ``tt_apply`` calls a layer, no flash launch;
+   e. the path's stored chains (w_in 2,048 -> 8,512, w_out 4,096 ->
       2,048) at B in {1, 4, 64, 8,192} (as 3.).
 
 Cuts of depth (every width as configured): qwen3-8b runs 8 of its 36
@@ -3355,19 +3358,13 @@ def _ssm_prefill_bf16(step, params, toks, what: str, tt: bool) -> dict:
 
 
 def ssm_prefill(keep: dict) -> dict:
-    """11b: bf16 prefill B = SSM_B x S = SSM_S through
+    """11d: bf16 prefill B = SSM_B x S = SSM_S through
     ``make_prefill_step``, TT-native (exactly two ``tt_apply`` calls a
     layer, chains on their kernels, no flash launch) and dense
     (reconstructed): tok/s and the SSD's share of the device time,
-    reported.  Float32 (TT leaves with float32 cores), gated: TT-native vs
-    reconstruct prefill at B = 1 x SSM_GATE_S within F32_TOL of scale;
-    eval losses within 1e-5 relative; every position's logits of the
-    chunked prefill of SSM_STEP_S tokens against the decode cache stepped
-    through them, each within F32_TOL of its scale.  Returns the record and
-    the float32 (model, params) for the Engine."""
+    reported."""
     from repro_torch.core import compression as comp
-    from repro_torch.models import common, mamba2
-    from repro_torch.train.steps import make_eval_step, make_prefill_step
+    from repro_torch.train.steps import make_prefill_step
     model, params = keep["model"], keep["params"]
     cfg = model.cfg
     layers = cfg.num_layers
@@ -3391,7 +3388,23 @@ def ssm_prefill(keep: dict) -> dict:
                                           "ssm prefill bf16 dense", False)
     del dense, toks
     torch.cuda.empty_cache()
+    return res
 
+
+def ssm_f32_gates(keep: dict) -> dict:
+    """11b, float32 (TT leaves with float32 cores), gated: TT-native vs
+    reconstruct prefill at B = 1 x SSM_GATE_S within F32_TOL of scale,
+    exactly two ``tt_apply`` calls a layer; eval losses within 1e-5
+    relative; every position's logits of the chunked prefill of SSM_STEP_S
+    tokens against the decode cache stepped through them, each within
+    F32_TOL of its scale.  Returns the record and the float32 (model,
+    params) for the Engine."""
+    from repro_torch.models import common, mamba2
+    from repro_torch.train.steps import make_eval_step, make_prefill_step
+    model = keep["model"]
+    cfg = model.cfg
+    layers = cfg.num_layers
+    res = {}
     m32 = _f32_model(model, DEVICE)
     tt32, rx32 = f32_params(keep["payload"], "ssm")
     cfg32 = m32.cfg
@@ -3492,25 +3505,37 @@ def ssm_engine(engine_mod, keep: dict, m32, tt32) -> dict:
     return res
 
 
-def ssm_phase(ops, cases, serve_mod, rep: dict) -> dict:
-    """11: full-width mamba2-1.3b from the child's checkpoint: serve tt and
-    tt-int8 (11a), prefill and the float32 gates (11b), the Engine (11c)
-    and the path's stored chains at B in {1, 4, 64} and a prefill's rows
-    (as 3.)."""
+def ssm_gates(serve_mod, rep: dict):
+    """11a-c: full-width mamba2-1.3b from the child's checkpoint: serve tt
+    and tt-int8, the float32 gates, the Engine.  Their gates hold whatever
+    else runs on the card, so they run while the longer children still
+    compress (tok/s taken beside them).  Returns the record and what 11d-e
+    need."""
     t0 = time.perf_counter()
     res = {"compression": {k: rep.get(k) for k in (
         "compress_s", "breakdown", "peak_bytes", "ranks", "plan",
         "dense_bytes", "tt_bytes", "wall_s")}}
     res["serve"], keep = ssm_serve(serve_mod, rep)
-    res["prefill"], m32, tt32 = ssm_prefill(keep)
+    res["prefill"], m32, tt32 = ssm_f32_gates(keep)
     res["engine"] = ssm_engine(serve_mod.engine_mod, keep, m32, tt32)
+    del m32, tt32
+    torch.cuda.empty_cache()
+    res["secs"] = time.perf_counter() - t0
+    return res, keep
+
+
+def ssm_timed(ops, cases, res: dict, keep: dict) -> None:
+    """11d-e, with the card to themselves: the bf16 prefill throughput and
+    the SSD's share (``ssm_prefill``), and the path's stored chains at B in
+    {1, 4, 64} and a prefill's rows (as 3.)."""
+    t0 = time.perf_counter()
+    res["prefill"].update(ssm_prefill(keep))
     info = keep["info"]
-    del m32, tt32, keep
+    keep.clear()
     torch.cuda.empty_cache()
     res["chains"] = stored_phase(ops, cases, chain_shapes(info), SSM_ARCH,
                                  batch_sizes=(1, 4, 64, SSM_B * SSM_S))
-    res["secs"] = time.perf_counter() - t0
-    return res
+    res["secs"] += time.perf_counter() - t0
 
 
 ENGINE_ROWS = [
@@ -3594,8 +3619,8 @@ def run_phases(t_start, work, children, ops, cases, fa_ops,
     qwen3-8b's serve run
     (their seconds and tok/s taken beside the children's work); the timed
     kernel checks, the prefill throughputs and the phases after them run
-    once the children they need have ended; the encoder-decoder and SSM
-    phases run last."""
+    once the children they need have ended; the SSM phase's gates run
+    once its child has ended, its timed checks last."""
     phase_s = {}
     ckpt_dir = str(Path(work) / ARCH)
     t0 = time.perf_counter()
@@ -3632,9 +3657,16 @@ def run_phases(t_start, work, children, ops, cases, fa_ops,
     torch.cuda.empty_cache()
     phase_s["serving"] = sum(serving_s.values())
 
+    # 11a-c while qwen3-8b's and recurrentgemma-2b's children compress:
+    # mamba2-1.3b's ends before theirs, and these gates hold beside them
     t0 = time.perf_counter()
-    compressed = {BIG_ARCH: finish_compression(BIG_ARCH, children[BIG_ARCH])}
+    compressed = {SSM_ARCH: finish_compression(SSM_ARCH, children[SSM_ARCH])}
     phase_s["waiting for the compressions"] = time.perf_counter() - t0
+    ssm, ssm_keep = ssm_gates(serve_mod, compressed[SSM_ARCH])
+
+    t0 = time.perf_counter()
+    compressed[BIG_ARCH] = finish_compression(BIG_ARCH, children[BIG_ARCH])
+    phase_s["waiting for the compressions"] += time.perf_counter() - t0
     t0 = time.perf_counter()
     fwd["big"], big_keep = big_serve(serve_mod, compressed[BIG_ARCH])
     torch.cuda.empty_cache()
@@ -3712,7 +3744,6 @@ def run_phases(t_start, work, children, ops, cases, fa_ops,
     t0 = time.perf_counter()
     compressed[ENCDEC_ARCH] = finish_compression(ENCDEC_ARCH,
                                                  children[ENCDEC_ARCH])
-    compressed[SSM_ARCH] = finish_compression(SSM_ARCH, children[SSM_ARCH])
     phase_s["waiting for the compressions"] += time.perf_counter() - t0
     peaks = {k: v.get("peak_bytes", 0) for k, v in compressed.items()}
     card_bytes = torch.cuda.get_device_properties(0).total_memory
@@ -3726,7 +3757,7 @@ def run_phases(t_start, work, children, ops, cases, fa_ops,
     phase_s["encdec"] = encdec["secs"]
     print(f"[chip_smoke] encdec phase {phase_s['encdec']:.1f}s")
     torch.cuda.empty_cache()
-    ssm = ssm_phase(ops, cases, serve_mod, compressed[SSM_ARCH])
+    ssm_timed(ops, cases, ssm, ssm_keep)
     phase_s["ssm"] = ssm["secs"]
     print(f"[chip_smoke] ssm phase {phase_s['ssm']:.1f}s")
 
