@@ -185,8 +185,8 @@
    flash route and one per batched chain route, the float32 banks' FFMA
    route too; the panel rows with their main-path route counts; the
    chains and both flash routes again at the encoder-decoder's shapes,
-   ``*_encdec``, with that phase's launches; and at mamba2-1.3b's,
-   ``*_ssm``),
+   ``*_encdec``, with that phase's launches; at mamba2-1.3b's,
+   ``*_ssm``; and at gemma3-1b's, ``*_gemma3``),
    the card line again, and as the last line ``{"ok": true, "device":
    {...}}``.
 
@@ -290,11 +290,45 @@
    e. the path's stored chains (w_in 2,048 -> 8,512, w_out 4,096 ->
       2,048) at B in {1, 4, 64, 8,192} (as 3.).
 
+12. gemma3 phase (the dense transformer with 5:1 local:global windows,
+   the √d_model embedding and a 262,144-entry tied vocabulary; 12a-c in
+   the wait for qwen3-8b's child, before the SSM phase's gates; 12d-e
+   last), from a fifth child compression (``serve --arch gemma3-1b
+   --weights tt --save-tt-checkpoint``, started with the others; it waits
+   for the TTD-engine phase to end before it compresses): full-width
+   gemma3-1b (``GEMMA_LAYERS`` = 12 of 26 layers, global layers 6 and 12;
+   d_model 1,152, 4 Q heads and 1 KV head of 256, qk-norm, d_ff 6,912
+   gelu, window 512 with every sixth layer global, vocab 262,144 tied),
+   random weights from seed 0 with the spectral decay, eps 0.2:
+   a. ``serve --weights tt`` then ``--weights tt-int8`` from the checkpoint
+      (B 4, prompt 16, gen 16) with the main path's gates (``big_serve``):
+      ranks equal to the compression's, every TT leaf within eps, chains on
+      their kernels with no plain call, kernels vs plain in float32, fused
+      == python driver tokens, TT-native vs reconstruct-then-serve in
+      float32; the leaves equal bit for bit to the child's payload and a
+      flipped byte refused;
+   b. float32 (float32 cores) at F32_TOL of scale (``dense_f32_gates``):
+      TT-native vs reconstruct prefill at B 2 x 4,096; prefill's last
+      logits against the KV cache stepped through GEMMA_STEP_S = 640
+      tokens (at position 639 the local layers' window of 512 excludes the
+      first 128 keys); and the window is live: the same prefill with no
+      window differs from the windowed one by more than 1e-3 of scale;
+   c. the Engine (4 slots, chunks of 8) in float32 on 6 requests, greedy
+      and sampled mixed, one of them a prompt of GEMMA_LONG[0] tokens that
+      crosses the window while its neighbours do not: tokens equal to the
+      isolated runs' in both admission modes, scan == boundary byte for
+      byte, chains on their kernels, no host sync inside a chunk;
+   d. (with e) bf16 TT-native prefill B 2 x 4,096 under both impls and
+      eval B 1 x 4,096 (``dense_forward``): tok/s, exactly 7 ``tt_apply``
+      calls a layer (wq, wk, wv, wo, w_gate, w_up, w_down), no flash
+      launch, losses of the impls within 1e-5 relative;
+   e. the path's stored chains at B in {1, 4} and at 4,096 rows (as 3.).
+
 Cuts of depth (every width as configured): qwen3-8b runs 8 of its 36
 layers; recurrentgemma-2b ``HYBRID_LAYERS`` of its 26;
 seamless-m4t-large-v2 ``ENCDEC_LAYERS`` = 12 of its 24 encoder and 24
-decoder layers; mamba2-1.3b ``SSM_LAYERS`` of its 48.  Nothing else is
-cut.
+decoder layers; mamba2-1.3b ``SSM_LAYERS`` of its 48; gemma3-1b
+``GEMMA_LAYERS`` of its 26.  Nothing else is cut.
 
 Exits non-zero without a CUDA card, and on any failed phase.
 """
@@ -379,21 +413,28 @@ AFTER_TIMEOUT_S = 900.0      # longest a child waits for the one before it
 
 
 def start_compression(name: str, serve_args, work: str,
-                      after: Optional[dict] = None) -> dict:
+                      after: Optional[str] = None) -> dict:
     """Start ``python3 chip_smoke.py --compress CKPT REPORT [--after
-    REPORT0] serve-args``; with ``after`` (another child), the process
-    waits for that child's report before it compresses, so the two
-    compressions' device memory never adds up."""
+    FILE] serve-args``; with ``after`` (another child's report, or a file
+    the main process writes when a phase ends), the process waits for that
+    file before it compresses, so the two never hold device memory at
+    once."""
     ckpt = str(Path(work) / name)
     report = str(Path(work) / f"{name}.json")
     log_path = Path(work) / f"{name}.log"
     log = open(log_path, "w")
-    wait = [] if after is None else ["--after", after["report"]]
+    wait = [] if after is None else ["--after", after]
     proc = subprocess.Popen(
         [sys.executable, str(ROOT / "chip_smoke.py"), "--compress", ckpt,
          report, *wait, *serve_args], stdout=log, stderr=subprocess.STDOUT)
     return {"proc": proc, "ckpt": ckpt, "report": report, "log": log,
-            "log_path": log_path, "t0": time.perf_counter()}
+            "log_path": log_path, "t0": time.perf_counter(),
+            "t0_unix": time.time()}
+
+
+def ttd_done_mark(work: str) -> str:
+    """The file the main process writes when the TTD-engine phase ends."""
+    return str(Path(work) / "ttd_engine.done")
 
 
 def finish_compression(name: str, child: dict,
@@ -414,6 +455,7 @@ def finish_compression(name: str, child: dict,
     if rc == 0:
         with open(child["report"]) as f:
             rep.update(json.load(f))
+        rep["done_s"] = rep["ended_unix"] - child["t0_unix"]
     counts = rep["counts"]
     for k in ("bitonic_sort_desc", "frob_truncate"):
         check(counts.get(k, 0) > 0,
@@ -421,8 +463,9 @@ def finish_compression(name: str, child: dict,
     check_no_plain(counts, f"{name} compression")
     print(f"[chip_smoke] {name}: compressed in a child process in "
           f"{rep.get('compress_s', float('nan')):.3f}s (incl. the spectral "
-          f"decay; the process ran {wall:.1f}s beside the other phases, "
-          f"{rep.get('waited_s', 0.0):.1f}s of it waiting its turn), "
+          f"decay; its report came {rep.get('done_s', float('nan')):.1f}s "
+          f"after its start, {rep.get('waited_s', 0.0):.1f}s of it waiting "
+          f"its turn; collected after {wall:.1f}s), "
           f"peak device memory {rep.get('peak_bytes', 0):,} B; launches "
           f"{counts}")
     return rep
@@ -432,8 +475,9 @@ def compress_child(ckpt: str, report: str, serve_args) -> int:
     """The child's side: ``serve --weights tt --save-tt-checkpoint CKPT``
     (two tokens, no verify), its compression's seconds, phases, peak device
     memory, launch counts and ranks written to ``report`` as JSON.  Leading
-    ``--after REPORT0`` in ``serve_args``: first wait (up to
-    AFTER_TIMEOUT_S) until REPORT0, another child's report, exists."""
+    ``--after FILE`` in ``serve_args``: first wait (up to AFTER_TIMEOUT_S)
+    until FILE (another child's report, or the main process's mark that a
+    phase has ended) exists."""
     if not torch.cuda.is_available():
         print("[chip_smoke] no CUDA device available", file=sys.stderr)
         return 2
@@ -468,7 +512,8 @@ def compress_child(ckpt: str, report: str, serve_args) -> int:
            "payload_ratio": info["payload_ratio"],
            "plan": [ex.bucket_launches, ex.serial_params],
            "dense_bytes": info["dense_bytes"], "tt_bytes": info["tt_bytes"],
-           "line": info["line"], "waited_s": waited}
+           "line": info["line"], "waited_s": waited,
+           "ended_unix": time.time()}
     # written whole, then renamed: a child waiting on it reads it complete
     with open(report + ".tmp", "w") as f:
         json.dump(rep, f)
@@ -787,6 +832,12 @@ def chain_shapes(info, experts: bool = False):
         key = (split, tuple(tuple(c) for c in cores))
         shapes[key] = shapes.get(key, 0) + 1
     return shapes
+
+
+def served_chains(info, quant: bool) -> tuple:
+    """The chain kernels the served leaves' depths launch."""
+    return tuple(sorted({f"tt_contract_{len(cores)}" + ("q" if quant else "")
+                         for _, cores, _ in info["chains"].values()}))
 
 
 # the chain kernels of kernels/tt_contract (phase A routes, phase B)
@@ -1814,6 +1865,11 @@ MOE_SERVE_ARGS = ["--arch", MOE_ARCH, "--batch", "4", "--prompt-len", "16",
 MOE_BANKS = ("layers.moe.w_gate", "layers.moe.w_up", "layers.moe.w_down")
 # the tt_contract_batched dispatch the batched routes replace
 BATCHED_TPU = "src/repro/kernels/tt_contract/ops.py:205"
+# the TPU kernels the four chain kernels replace
+CHAIN_TPU = {name: f"src/repro/kernels/tt_contract/kernel.py:{line}"
+             for name, line in (("tt_contract_2", 138), ("tt_contract_3", 162),
+                                ("tt_contract_2q", 190),
+                                ("tt_contract_3q", 219))}
 
 
 class _Recorder:
@@ -2158,10 +2214,32 @@ def _tokens(vocab: int, b: int, s: int, seed: int = 1) -> torch.Tensor:
     return torch.randint(0, vocab, (b, s), generator=g, device=DEVICE)
 
 
-def dense_forward(out, what: str, b: int, s: int, eval_s: int = 0) -> dict:
+class _TTCalls:
+    """Counts ``tt_apply`` calls (every TT-served projection goes through
+    ``common.dense_apply`` → ``tt_linear.tt_apply``)."""
+
+    def __init__(self):
+        from repro_torch.core import tt_linear
+        self.mod, self.orig, self.n = tt_linear, tt_linear.tt_apply, 0
+
+    def __enter__(self):
+        def wrapped(*a, **k):
+            self.n += 1
+            return self.orig(*a, **k)
+        self.mod.tt_apply = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.tt_apply = self.orig
+
+
+def dense_forward(out, what: str, b: int, s: int, eval_s: int = 0,
+                  tt_calls=None) -> dict:
     """Prefill (and eval at B = 1, S = ``eval_s``) through the entry points
     with the served TT-native bf16 weights under both impls: tok/s, the
-    chain kernels launched, no flash launch, equal losses."""
+    chain kernels launched, no flash launch, equal losses; with
+    ``tt_calls``, exactly that many ``tt_apply`` calls a layer in each
+    timed prefill."""
     from repro_torch.train.steps import make_eval_step, make_prefill_step
     model, params = out["model"], out["params"]
     vocab = model.cfg.vocab_size
@@ -2171,14 +2249,21 @@ def dense_forward(out, what: str, b: int, s: int, eval_s: int = 0) -> dict:
     for impl in ("pallas", "xla"):
         step = make_prefill_step(model, impl=impl)
         step(params, batch)                               # warm-up
-        lg, secs, counts = _counted(lambda: step(params, batch))
+        with _TTCalls() as calls:
+            lg, secs, counts = _counted(lambda: step(params, batch))
         check(lg.shape == (b, vocab) and bool(torch.isfinite(lg).all()),
               f"{what} prefill {impl}: logits {tuple(lg.shape)} not finite")
         _prefill_counts(counts, f"{what} prefill {impl}", chains)
+        if tt_calls is not None:
+            want = tt_calls * model.cfg.num_layers
+            check(calls.n == want, f"{what} prefill {impl}: {calls.n} "
+                                   f"tt_apply calls, want {want}")
         res["tok_per_s"][impl] = b * s / secs
         res["counts"][impl] = counts
+        res["tt_apply_calls"] = calls.n
         print(f"[chip_smoke] {what} prefill bf16 tt impl={impl}: B={b} S={s} "
-              f"in {secs:.3f}s = {b * s / secs:.0f} tok/s; launches {counts}")
+              f"in {secs:.3f}s = {b * s / secs:.0f} tok/s; tt_apply calls "
+              f"{calls.n}; launches {counts}")
     if eval_s:
         toks = batch["tokens"][:1, :eval_s]
         batch1 = {"tokens": toks, "labels": torch.roll(toks, -1, 1)}
@@ -2200,16 +2285,20 @@ def dense_forward(out, what: str, b: int, s: int, eval_s: int = 0) -> dict:
     return res
 
 
-def dense_f32_gates(out, what: str) -> dict:
+def dense_f32_gates(out, what: str, b: int = FWD_B, s: int = FWD_S,
+                    decode_s: int = DECODE_S) -> dict:
     """Float32 activations and weights: TT-native prefill (chain kernels)
-    against reconstruct-then-prefill (plain) at B = FWD_B, S = FWD_S, and
+    against reconstruct-then-prefill (plain) at B = ``b``, S = ``s``, and
     prefill's last logits against the decode cache stepped through
-    DECODE_S tokens, both at F32_TOL of scale."""
+    ``decode_s`` tokens, both at F32_TOL of scale.  A model with a window:
+    the same TT-native prefill with no window (every layer global) must
+    differ from the windowed one by more than 1e-3 of scale, or the local
+    layers' mask is not in effect."""
     from repro_torch.train.steps import make_prefill_step
     model = out["model"]
     m32 = _f32_model(model, DEVICE)
     tt32, rx32 = f32_params(out["payload"], model.cfg.family)
-    batch = {"tokens": _tokens(model.cfg.vocab_size, FWD_B, FWD_S)}
+    batch = {"tokens": _tokens(model.cfg.vocab_size, b, s)}
     got, _, counts = _counted(
         lambda: make_prefill_step(m32, impl="pallas")(tt32, batch))
     _prefill_counts(counts, f"{what} prefill TT f32",
@@ -2221,23 +2310,38 @@ def dense_f32_gates(out, what: str) -> dict:
                                 f"max|d| {d:.3e} over {F32_TOL} * scale "
                                 f"{scale:.3e}")
     print(f"[chip_smoke] {what} f32: TT-native prefill (chain kernels) vs "
-          f"reconstruct-then-prefill (plain), B={FWD_B} S={FWD_S}: "
+          f"reconstruct-then-prefill (plain), B={b} S={s}: "
           f"max|d|/scale {d / scale:.3e}")
-    del rx32, got, ref
-    toks = batch["tokens"][:1, :DECODE_S]
+    del rx32, ref
+    if model.cfg.window is not None:
+        unwindowed = dataclasses.replace(
+            model, cfg=dataclasses.replace(model.cfg, window=None))
+        wide = make_prefill_step(_f32_model(unwindowed, DEVICE),
+                                 impl="pallas")(tt32, batch)
+        d, scale = _gap(wide, got)
+        res["window_gap"] = d / scale
+        check(d > 1e-3 * scale, f"{what}: the prefill with no window is "
+                                f"within {d / scale:.3e} of scale of the "
+                                f"windowed one: the window is not live")
+        print(f"[chip_smoke] {what} f32: TT-native prefill with no window "
+              f"vs window {model.cfg.window}, B={b} S={s}: max|d|/scale "
+              f"{d / scale:.3e} (must exceed 1e-3)")
+        del wide
+    del got
+    toks = batch["tokens"][:1, :decode_s]
     last = make_prefill_step(m32, impl="pallas")(tt32, {"tokens": toks})
-    cache = m32.init_cache(1, DECODE_S)
+    cache = m32.init_cache(1, decode_s)
     t0 = time.perf_counter()
     with torch.inference_mode():
-        for t in range(DECODE_S):
+        for t in range(decode_s):
             stepped, cache = m32.decode_step(tt32, cache, toks[:, t:t + 1])
     torch.cuda.synchronize()
     d, scale = _gap(last, stepped)
     res["prefill_vs_decode"] = d / scale
     check(d <= F32_TOL * scale, f"{what}: prefill vs decode-stepped logits at "
-                                f"position {DECODE_S - 1}: max|d| {d:.3e} "
+                                f"position {decode_s - 1}: max|d| {d:.3e} "
                                 f"over {F32_TOL} * scale {scale:.3e}")
-    print(f"[chip_smoke] {what} f32: TT-native prefill vs {DECODE_S} decode "
+    print(f"[chip_smoke] {what} f32: TT-native prefill vs {decode_s} decode "
           f"steps through the KV cache ({time.perf_counter() - t0:.1f}s): "
           f"last-position max|d|/scale {d / scale:.3e}")
     return res
@@ -2328,72 +2432,86 @@ def moe_prefill(ops, cases, keep, tt32, rx32, info) -> dict:
     return res
 
 
-def big_serve(serve_mod, rep: dict):
-    """d: qwen3-8b at full width, BIG_LAYERS of its 36 layers: ``serve
-    --weights tt`` from the checkpoint a child process compressed on the
-    card (``rep``: its report), with the main path's gates.  Returns (the
-    results, what ``big_kernels`` needs)."""
-    args = serve_mod.parse_args(BIG_SERVE_ARGS + [
-        "--weights", "tt", "--tt-checkpoint", rep["ckpt"]])
+def big_serve(serve_mod, rep: dict, serve_args=BIG_SERVE_ARGS,
+              weights: str = "tt"):
+    """d: qwen3-8b at full width, BIG_LAYERS of its 36 layers (or another
+    dense model's ``serve_args``): ``serve --weights WEIGHTS`` from the
+    checkpoint a child process compressed on the card (``rep``: its
+    report), with the main path's gates (``tt``: every TT leaf within eps,
+    fused == python tokens, kernels vs plain and TT-native vs reconstruct
+    in float32; ``tt-int8``: kernels vs plain).  Returns (the results, what
+    ``big_kernels`` needs)."""
+    from repro_torch.configs import get_config
+    args = serve_mod.parse_args(serve_args + [
+        "--weights", weights, "--tt-checkpoint", rep["ckpt"]])
     out, wall, counts = _counted(lambda: serve_mod.serve(args))
     info, ver, gen = out["info"], out["verify"], out["generated"]
-    cfg = out["model"].cfg
-    check(cfg.num_layers == BIG_LAYERS and cfg.d_model == 4096,
-          f"{BIG_ARCH}: served {cfg.num_layers} layers of width "
-          f"{cfg.d_model}")
+    cfg, arch = out["model"].cfg, args.arch
+    what = f"{arch} {weights}"
+    check(cfg.num_layers == args.layers
+          and cfg.d_model == get_config(arch).d_model,
+          f"{arch}: served {cfg.num_layers} layers of width {cfg.d_model}")
     check(gen.shape == (4, 16) and gen.min() >= 0
           and gen.max() < cfg.vocab_size,
-          f"{BIG_ARCH}: generated tokens {gen.shape} out of range")
+          f"{what}: generated tokens {gen.shape} out of range")
     check(bool(torch.isfinite(out["run"]["prompt_logits"]).all()),
-          f"{BIG_ARCH}: non-finite logits")
-    for k in ("tt_contract_2", "tt_contract_3"):
-        check(counts.get(k, 0) > 0, f"{BIG_ARCH}: kernel {k} never launched")
-    check(counts.get("plain_chains", 0) == 0,
-          f"{BIG_ARCH}: {counts.get('plain_chains')} plain-path chains")
+          f"{what}: non-finite logits")
+    _chains_on_kernels(counts, what, served_chains(info, weights != "tt"))
+    check(not counts.get("frob_truncate") and info["compress_s"] is None,
+          f"{what}: compressed ({counts})")
     check(info["ranks"] == {k: tuple(v) for k, v in rep["ranks"].items()},
-          f"{BIG_ARCH}: the checkpoint's ranks differ from the compression's")
-    check_no_plain(counts, BIG_ARCH)
+          f"{what}: the checkpoint's ranks differ from the compression's")
     breakdown, peak = rep["breakdown"], rep["peak_bytes"]
-    print(f"[chip_smoke] {BIG_ARCH} ({BIG_LAYERS} layers) tt: compressed in "
-          f"{rep['compress_s']:.3f}s (incl. the spectral decay, a child "
-          f"process), peak device memory {peak:,} B, payload ratio "
-          f"{info['payload_ratio']:.3f}; loaded in {info['load_s']:.3f}s; "
-          f"decode {out['tok_per_s']:.2f} tok/s; wall {wall:.1f}s; "
-          f"launches {counts}")
-    print(f"[chip_smoke] {BIG_ARCH} compression, where the time goes "
-          f"{json.dumps(breakdown)}")
-    print(f"[chip_smoke] {BIG_ARCH} ranks: " + json.dumps(rep["ranks"]))
-    print(f"[chip_smoke] {BIG_ARCH} bytes: {info['line']}")
-    print(f"[chip_smoke] {BIG_ARCH} reference-oracle gate (reported): "
-          f"max|d|/scale {ver['max_diff'] / ver['scale']:.4f} (bound 0.05)")
+    print(f"[chip_smoke] {arch} ({cfg.num_layers} layers) {weights}: "
+          f"compressed in {rep['compress_s']:.3f}s (incl. the spectral "
+          f"decay, a child process), peak device memory {peak:,} B, payload "
+          f"ratio {info['payload_ratio']:.3f}; loaded in "
+          f"{info['load_s']:.3f}s; decode {out['tok_per_s']:.2f} tok/s; "
+          f"wall {wall:.1f}s; launches {counts}")
+    print(f"[chip_smoke] {what} reference-oracle gate (reported): "
+          f"max|d|/scale {ver['max_diff'] / ver['scale']:.4f} (bound 0.05)"
+          + (f", tie-tolerant agreement {ver['tie_agree']:.4f} (gate 0.99)"
+             if "tie_agree" in ver else ""))
     res = {"compress_s": rep["compress_s"], "breakdown": breakdown,
            "peak_bytes": peak, "wall_s": wall, "counts": counts,
            "compress_launches": rep["counts"],
            "ranks": {k: list(v) for k, v in info["ranks"].items()},
            "payload_ratio": info["payload_ratio"],
            "dense_bytes": info["dense_bytes"], "tt_bytes": info["tt_bytes"],
-           "tok_per_s": out["tok_per_s"], "verify": ver}
-    res["eps_worst"] = eps_gate(decayed_params(out["model"]),
-                                out["payload"], f"{BIG_ARCH}, full width")
-    res["drivers_agree"] = drivers_agree(serve_mod, out, BIG_ARCH)
-    res["kernels_vs_plain"] = kernels_vs_plain(serve_mod, out,
-                                               f"{BIG_ARCH} tt")
-    res["f32_oracle"] = f32_oracle(serve_mod, out, BIG_ARCH)
+           "ttq_bytes": info.get("ttq_bytes"),
+           "tok_per_s": out["tok_per_s"], "verify": ver,
+           "served": {k: [v[0], [list(c) for c in v[1]]]
+                      for k, v in info["chains"].items()}}
+    res["kernels_vs_plain"] = kernels_vs_plain(serve_mod, out, what)
+    if weights == "tt":
+        print(f"[chip_smoke] {arch} compression, where the time goes "
+              f"{json.dumps(breakdown)}")
+        print(f"[chip_smoke] {arch} ranks: " + json.dumps(rep["ranks"]))
+        print(f"[chip_smoke] {arch} bytes: {info['line']}")
+        res["eps_worst"] = eps_gate(decayed_params(out["model"]),
+                                    out["payload"], f"{arch}, full width")
+        res["drivers_agree"] = drivers_agree(serve_mod, out, arch)
+        res["f32_oracle"] = f32_oracle(serve_mod, out, arch)
     keep = {"model": out["model"], "params": out["params"],
+            "payload": out["payload"], "info": info,
             "shapes": chain_shapes(info)}
     return res, keep
 
 
-def big_kernels(ops, cases, res: dict, keep: dict) -> None:
-    """d, timed: qwen3-8b's stored chains at B in {1, 4, BIG_PREFILL_S}
-    (``stored_phase``), and prefill at B = 1, S = BIG_PREFILL_S."""
-    res["chains"] = stored_phase(ops, cases, keep["shapes"], BIG_ARCH,
+def big_kernels(ops, cases, res: dict, keep: dict, arch: str = BIG_ARCH,
+                b: int = 1, eval_s: int = 0, tt_calls=None) -> None:
+    """d, timed: qwen3-8b's (or ``arch``'s) stored chains at B in {1, 4,
+    BIG_PREFILL_S} (``stored_phase``), and prefill at B = ``b``, S =
+    BIG_PREFILL_S (``dense_forward``: eval at S = ``eval_s`` too, and
+    ``tt_calls`` tt_apply calls a layer gated)."""
+    res["chains"] = stored_phase(ops, cases, keep["shapes"], arch,
                                  batch_sizes=(1, 4))
     # timed at the prefill's rows too
     res["chains_prefill_rows"] = stored_phase(
-        ops, cases, keep["shapes"], BIG_ARCH, batch_sizes=(BIG_PREFILL_S,),
+        ops, cases, keep["shapes"], arch, batch_sizes=(BIG_PREFILL_S,),
         report_b=BIG_PREFILL_S)
-    res["prefill"] = dense_forward(keep, BIG_ARCH, 1, BIG_PREFILL_S)
+    res["prefill"] = dense_forward(keep, arch, b, BIG_PREFILL_S,
+                                   eval_s=eval_s, tt_calls=tt_calls)
 
 
 # (JSON name, engine_cases kinds (timed first), source, TPU kernel, launch
@@ -2549,12 +2667,14 @@ class _NoSyncSteps:
 
 
 def engine_stream(engine_mod, model, params, stream, admission: str,
-                  no_sync: bool = False) -> dict:
-    """One ``Engine`` (SERVE_SLOTS slots, SERVE_CHUNK steps a chunk) over
-    ``stream`` (a request's ``"src"``, when it has one, is its encoder
-    input); launch counts over exactly its run."""
+                  no_sync: bool = False, max_len: int = SERVE_MAX_LEN
+                  ) -> dict:
+    """One ``Engine`` (SERVE_SLOTS slots, SERVE_CHUNK steps a chunk, caches
+    of ``max_len`` positions) over ``stream`` (a request's ``"src"``, when
+    it has one, is its encoder input); launch counts over exactly its
+    run."""
     eng = engine_mod.Engine(model, params, slots=SERVE_SLOTS,
-                            max_len=SERVE_MAX_LEN, chunk_steps=SERVE_CHUNK,
+                            max_len=max_len, chunk_steps=SERVE_CHUNK,
                             admission=admission)
     uids = [eng.submit(r["prompt"], r["gen"], seed=r["seed"],
                        temperature=r["temperature"], top_k=r["top_k"],
@@ -3209,12 +3329,6 @@ SSM_STEP_S = 300                 # prefill vs stepped decode: one whole
 SSM_REQS = 8                     # Engine requests
 
 
-def _ssm_chains(info, quant: bool) -> tuple:
-    """The chain kernels the served leaves' depths launch."""
-    return tuple(sorted({f"tt_contract_{len(cores)}" + ("q" if quant else "")
-                         for _, cores, _ in info["chains"].values()}))
-
-
 def ssm_serve(serve_mod, rep: dict) -> dict:
     """11a: ``serve --weights tt`` and then ``--weights tt-int8`` from the
     child's checkpoint (no compression): the tt run's leaves equal bit for
@@ -3230,7 +3344,8 @@ def ssm_serve(serve_mod, rep: dict) -> dict:
         out, secs, counts = _counted(lambda: serve_mod.serve(args))
         info, cfg = out["info"], out["model"].cfg
         what = f"ssm serve {weights}"
-        _chains_on_kernels(counts, what, _ssm_chains(info, weights != "tt"))
+        _chains_on_kernels(counts, what,
+                           served_chains(info, weights != "tt"))
         check(not counts.get("frob_truncate") and info["compress_s"] is None,
               f"{what}: compressed ({counts})")
         check(sorted(info["chains"]) == ["layers.w_in", "layers.w_out"],
@@ -3307,25 +3422,6 @@ class _Spans:
         return sum(a.elapsed_time(b) for a, b in self.events)
 
 
-class _TTCalls:
-    """Counts ``tt_apply`` calls (every TT-served projection goes through
-    ``common.dense_apply`` → ``tt_linear.tt_apply``)."""
-
-    def __init__(self):
-        from repro_torch.core import tt_linear
-        self.mod, self.orig, self.n = tt_linear, tt_linear.tt_apply, 0
-
-    def __enter__(self):
-        def wrapped(*a, **k):
-            self.n += 1
-            return self.orig(*a, **k)
-        self.mod.tt_apply = wrapped
-        return self
-
-    def __exit__(self, *exc):
-        self.mod.tt_apply = self.orig
-
-
 def _ssm_prefill_bf16(step, params, toks, what: str, tt: bool) -> dict:
     """One warm-up and one timed bf16 prefill of ``toks``: tok/s, the SSD's
     share of the run's device time (CUDA events around the prefill and
@@ -3375,7 +3471,7 @@ def ssm_prefill(keep: dict) -> dict:
                                        "ssm prefill bf16 tt", True)
     r = res["bf16_tt"]
     _prefill_counts(r["counts"], "ssm prefill bf16 tt",
-                    _ssm_chains(keep["info"], False))
+                    served_chains(keep["info"], False))
     chain_launches = sum(v for k, v in r["counts"].items()
                          if k in ("tt_contract_2", "tt_contract_3"))
     check(r["tt_apply_calls"] == 2 * layers
@@ -3413,7 +3509,7 @@ def ssm_f32_gates(keep: dict) -> dict:
     with _TTCalls() as calls:
         lt, _, counts = _counted(lambda: step32(tt32, {"tokens": toks}))
     _prefill_counts(counts, "ssm prefill f32 tt",
-                    _ssm_chains(keep["info"], False))
+                    served_chains(keep["info"], False))
     check(calls.n == 2 * layers, f"ssm prefill f32: {calls.n} tt_apply "
                                  f"calls, want {2 * layers}")
     lr = step32(rx32, {"tokens": toks})
@@ -3459,32 +3555,30 @@ def ssm_f32_gates(keep: dict) -> dict:
     return res, m32, tt32
 
 
-def ssm_engine(engine_mod, keep: dict, m32, tt32) -> dict:
-    """11c: the Engine (SERVE_SLOTS slots, chunks of SERVE_CHUNK) on
-    SSM_REQS requests, greedy and sampled mixed.  Float32, gated: every
-    completion's tokens equal to its isolated ``generate`` run's, in both
-    admission modes; scan == boundary byte for byte (tokens and prompt
-    logits); chains on their kernels; no host sync inside a chunk.  bf16
-    ``tt`` (as served), scan: tok/s, reported."""
-    stream = serve_stream(m32.cfg.vocab_size, n=SSM_REQS, seed=28,
-                          plen=(3, 17), gen=(4, 17))
+def engine_f32_gates(engine_mod, m32, tt32, stream, what: str, chains,
+                     max_len: int = SERVE_MAX_LEN) -> dict:
+    """The Engine on ``stream`` in float32 (TT-native params with float32
+    cores), gated: every completion's tokens equal to its isolated
+    ``generate`` run's, in both admission modes; scan == boundary byte for
+    byte (tokens and prompt logits); the chain kernels ``chains`` launched
+    with no plain chain; no host sync inside a chunk."""
     iso = isolated_runs(engine_mod, m32, tt32, stream)
     res, runs = {}, {}
     for admission in ("scan", "boundary"):
         r = engine_stream(engine_mod, m32, tt32, stream, admission,
-                          no_sync=True)
+                          no_sync=True, max_len=max_len)
         runs[admission] = r
         bad = [i for i, (c, t) in enumerate(zip(r["comps"], iso))
                if not np.array_equal(c.tokens, t)]
-        check(not bad, f"ssm engine f32 {admission}: requests {bad} differ "
-                       f"from their isolated runs")
-        _chains_on_kernels(r["counts"], f"ssm engine f32 {admission}",
-                           _ssm_chains(keep["info"], False))
+        check(not bad, f"{what} engine f32 {admission}: requests {bad} "
+                       f"differ from their isolated runs")
+        _chains_on_kernels(r["counts"], f"{what} engine f32 {admission}",
+                           chains)
         res[f"f32_{admission}"] = {
             "equal_isolated": len(stream) - len(bad), "steps": r["steps"],
             "occupancy": r["occupancy"], "tok_per_s": r["tok_per_s"],
             "chunks_no_sync": r["chunks_no_sync"], "launches": r["counts"]}
-        print(f"[chip_smoke] ssm engine f32 {admission}: "
+        print(f"[chip_smoke] {what} engine f32 {admission}: "
               f"{len(stream) - len(bad)}/{len(stream)} equal to isolated, "
               f"{r['steps']} steps, occupancy {r['occupancy']:.3f}, "
               f"{r['tok_per_s']:.1f} tok/s, {r['chunks_no_sync']} chunks "
@@ -3493,8 +3587,20 @@ def ssm_engine(engine_mod, keep: dict, m32, tt32) -> dict:
                and np.array_equal(a.prompt_logits, b.prompt_logits)
                for a, b in zip(runs["scan"]["comps"],
                                runs["boundary"]["comps"]))
-    check(same, "ssm engine f32: scan and boundary admission differ")
+    check(same, f"{what} engine f32: scan and boundary admission differ")
     res["scan_equals_boundary"] = same
+    return res
+
+
+def ssm_engine(engine_mod, keep: dict, m32, tt32) -> dict:
+    """11c: the Engine (SERVE_SLOTS slots, chunks of SERVE_CHUNK) on
+    SSM_REQS requests, greedy and sampled mixed: the float32 gates
+    (``engine_f32_gates``); bf16 ``tt`` (as served), scan: tok/s,
+    reported."""
+    stream = serve_stream(m32.cfg.vocab_size, n=SSM_REQS, seed=28,
+                          plen=(3, 17), gen=(4, 17))
+    res = engine_f32_gates(engine_mod, m32, tt32, stream, "ssm",
+                           served_chains(keep["info"], False))
     r = engine_stream(engine_mod, keep["model"], keep["params"], stream,
                       "scan")
     res["tt"] = {"tok_per_s": r["tok_per_s"], "occupancy": r["occupancy"],
@@ -3535,6 +3641,82 @@ def ssm_timed(ops, cases, res: dict, keep: dict) -> None:
     torch.cuda.empty_cache()
     res["chains"] = stored_phase(ops, cases, chain_shapes(info), SSM_ARCH,
                                  batch_sizes=(1, 4, 64, SSM_B * SSM_S))
+    res["secs"] += time.perf_counter() - t0
+
+
+# ---------------------------------------------------------------------------
+# gemma3 phase: the dense transformer with local and global layers
+# ---------------------------------------------------------------------------
+
+GEMMA_ARCH = "gemma3-1b"
+GEMMA_LAYERS = 12        # layers served, of 26: global layers 6 and 12
+GEMMA_SERVE_ARGS = ["--arch", GEMMA_ARCH, "--layers", str(GEMMA_LAYERS),
+                    "--batch", "4", "--prompt-len", "16", "--gen", "16",
+                    "--seed", "0", "--tt-eps", "0.2"]
+GEMMA_B, GEMMA_S = 2, 4096       # bf16 prefill and the float32 gates
+GEMMA_STEP_S = 640               # prefill vs stepped decode: 128 keys past
+                                 # the local layers' window of 512
+GEMMA_LONG = (530, 8)            # the Engine request crossing the window
+GEMMA_TT_CALLS = 7               # wq, wk, wv, wo, w_gate, w_up, w_down
+
+
+def gemma_engine(engine_mod, keep: dict) -> dict:
+    """12c: the Engine in float32 (``engine_f32_gates``) on 5 requests of
+    prompts 3-32 and gens 4-16, greedy and sampled mixed, and one greedy
+    request of GEMMA_LONG (prompt, gen), whose positions cross the local
+    layers' window while its neighbours' stay inside it."""
+    vocab = keep["model"].cfg.vocab_size
+    stream = serve_stream(vocab, n=5, seed=29, plen=(3, 33), gen=(4, 17))
+    plen, gen = GEMMA_LONG
+    stream.append({"prompt": np.random.default_rng(30).integers(
+        0, vocab, plen, np.int32), "gen": gen, "seed": len(stream),
+        "temperature": 0.0, "top_k": None})
+    m32 = _f32_model(keep["model"], DEVICE)
+    tt32, _ = f32_params(keep["payload"], "dense")
+    res = engine_f32_gates(engine_mod, m32, tt32, stream, "gemma3",
+                           served_chains(keep["info"], False),
+                           max_len=plen + gen)
+    res["requests"] = [[len(r["prompt"]), r["gen"]] for r in stream]
+    return res
+
+
+def gemma_gates(serve_mod, rep: dict):
+    """12a-c: full-width gemma3-1b from the child's checkpoint: serve tt
+    and tt-int8 with the main path's gates and the checkpoint's, the
+    float32 gates, the Engine.  Their gates hold whatever else runs on the
+    card, so they run while the longer children still compress.  Returns
+    the record and what 12d-e need."""
+    t0 = time.perf_counter()
+    res = {"compression": {k: rep.get(k) for k in (
+        "compress_s", "breakdown", "peak_bytes", "ranks", "plan",
+        "payload_ratio", "dense_bytes", "tt_bytes", "wall_s", "done_s")}}
+    res["tt"], keep = big_serve(serve_mod, rep, GEMMA_SERVE_ARGS)
+    same, leaves, raised = child_checkpoint_checks(keep, rep, GEMMA_ARCH)
+    res["checkpoint"] = {"equal": same, "leaves": leaves,
+                         "flipped": raised[:90]}
+    print(f"[chip_smoke] {GEMMA_ARCH} checkpoint: {leaves} leaves equal to "
+          f"the child's payload: {same}; flipped byte -> {raised[:60]}")
+    res["tt-int8"], _ = big_serve(serve_mod, rep, GEMMA_SERVE_ARGS,
+                                  weights="tt-int8")
+    torch.cuda.empty_cache()
+    res["f32"] = dense_f32_gates(keep, GEMMA_ARCH, GEMMA_B, GEMMA_S,
+                                 GEMMA_STEP_S)
+    torch.cuda.empty_cache()
+    res["engine"] = gemma_engine(serve_mod.engine_mod, keep)
+    torch.cuda.empty_cache()
+    res["secs"] = time.perf_counter() - t0
+    return res, keep
+
+
+def gemma_timed(ops, cases, res: dict, keep: dict) -> None:
+    """12d-e, with the card to themselves: the bf16 prefill and eval under
+    both impls (7 ``tt_apply`` calls a layer, no flash launch), the path's
+    stored chains at B in {1, 4} and a prefill's rows (``big_kernels``)."""
+    t0 = time.perf_counter()
+    big_kernels(ops, cases, res, keep, GEMMA_ARCH, b=GEMMA_B,
+                eval_s=GEMMA_S, tt_calls=GEMMA_TT_CALLS)
+    keep.clear()
+    torch.cuda.empty_cache()
     res["secs"] += time.perf_counter() - t0
 
 
@@ -3598,7 +3780,13 @@ def main() -> int:
         # mamba2-1.3b after seamless: four compressions at once beside
         # the TTD-engine phase run the card out of memory
         children[SSM_ARCH] = start_compression(
-            SSM_ARCH, SSM_SERVE_ARGS, work, after=children[ENCDEC_ARCH])
+            SSM_ARCH, SSM_SERVE_ARGS, work,
+            after=children[ENCDEC_ARCH]["report"])
+        # gemma3-1b once the TTD-engine phase has ended, for the same
+        # reason, and early enough for its gates to run in the wait for
+        # qwen3-8b's child
+        children[GEMMA_ARCH] = start_compression(
+            GEMMA_ARCH, GEMMA_SERVE_ARGS, work, after=ttd_done_mark(work))
         return run_phases(t_start, work, children, ops, cases, fa_ops,
                           serve_mod)
     finally:
@@ -3613,14 +3801,13 @@ def main() -> int:
 def run_phases(t_start, work, children, ops, cases, fa_ops,
                serve_mod) -> int:
     """Every phase after the build.  While ``children`` compress
-    recurrentgemma-2b, qwen3-8b, seamless-m4t-large-v2 and mamba2-1.3b,
-    the main path, the checkpoint, the
-    float32 gates, the engine's compressions, the serving phase and
-    qwen3-8b's serve run
+    recurrentgemma-2b, qwen3-8b, seamless-m4t-large-v2, mamba2-1.3b and
+    gemma3-1b, the main path, the checkpoint, the float32 gates, the
+    engine's compressions, the serving phase and qwen3-8b's serve run
     (their seconds and tok/s taken beside the children's work); the timed
     kernel checks, the prefill throughputs and the phases after them run
-    once the children they need have ended; the SSM phase's gates run
-    once its child has ended, its timed checks last."""
+    once the children they need have ended; the SSM and gemma3 phases'
+    gates run once their children have ended, their timed checks last."""
     phase_s = {}
     ckpt_dir = str(Path(work) / ARCH)
     t0 = time.perf_counter()
@@ -3643,6 +3830,7 @@ def run_phases(t_start, work, children, ops, cases, fa_ops,
     svd_d = blocked_svd_check(full["wq"])
     torch.cuda.empty_cache()
     phase_s["TTD engine"] = time.perf_counter() - t0
+    Path(ttd_done_mark(work)).touch()       # gemma3-1b's child starts
 
     # serving (9a, 9b, 9d; 9c in the hybrid phase), while the children
     # compress: its gates are exact, and its tok/s are taken beside them
@@ -3657,11 +3845,17 @@ def run_phases(t_start, work, children, ops, cases, fa_ops,
     torch.cuda.empty_cache()
     phase_s["serving"] = sum(serving_s.values())
 
-    # 11a-c while qwen3-8b's and recurrentgemma-2b's children compress:
-    # mamba2-1.3b's ends before theirs, and these gates hold beside them
+    # 12a-c and 11a-c while qwen3-8b's and recurrentgemma-2b's children
+    # compress: gemma3-1b's and mamba2-1.3b's end before theirs, and these
+    # gates hold beside them
     t0 = time.perf_counter()
-    compressed = {SSM_ARCH: finish_compression(SSM_ARCH, children[SSM_ARCH])}
+    compressed = {GEMMA_ARCH: finish_compression(GEMMA_ARCH,
+                                                 children[GEMMA_ARCH])}
     phase_s["waiting for the compressions"] = time.perf_counter() - t0
+    gemma, gemma_keep = gemma_gates(serve_mod, compressed[GEMMA_ARCH])
+    t0 = time.perf_counter()
+    compressed[SSM_ARCH] = finish_compression(SSM_ARCH, children[SSM_ARCH])
+    phase_s["waiting for the compressions"] += time.perf_counter() - t0
     ssm, ssm_keep = ssm_gates(serve_mod, compressed[SSM_ARCH])
 
     t0 = time.perf_counter()
@@ -3760,6 +3954,9 @@ def run_phases(t_start, work, children, ops, cases, fa_ops,
     ssm_timed(ops, cases, ssm, ssm_keep)
     phase_s["ssm"] = ssm["secs"]
     print(f"[chip_smoke] ssm phase {phase_s['ssm']:.1f}s")
+    gemma_timed(ops, cases, gemma, gemma_keep)
+    phase_s["gemma3"] = gemma["secs"]
+    print(f"[chip_smoke] gemma3 phase {phase_s['gemma3']:.1f}s")
 
     fwd_s = {k: v for k, v in phase_s.items() if k.startswith("forward")}
     print(f"[chip_smoke] forward and checkpoint phase "
@@ -3777,10 +3974,7 @@ def run_phases(t_start, work, children, ops, cases, fa_ops,
         r = rec[name]
         kernels.append({
             "name": name, "route": "cuda", "source": chain_src,
-            "replaces": {"tt_contract_2": "src/repro/kernels/tt_contract/kernel.py:138",
-                         "tt_contract_3": "src/repro/kernels/tt_contract/kernel.py:162",
-                         "tt_contract_2q": "src/repro/kernels/tt_contract/kernel.py:190",
-                         "tt_contract_3q": "src/repro/kernels/tt_contract/kernel.py:219"}[name],
+            "replaces": CHAIN_TPU[name],
             "launches": path["counts"].get(name, 0),
             "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "graph_ms": r["graph_ms"],
@@ -3871,8 +4065,7 @@ def run_phases(t_start, work, children, ops, cases, fa_ops,
         r = encdec["chains"][name]
         kernels.append({
             "name": f"{name}_encdec", "route": "cuda", "source": chain_src,
-            "replaces": {"tt_contract_2": "src/repro/kernels/tt_contract/kernel.py:138",
-                         "tt_contract_3": "src/repro/kernels/tt_contract/kernel.py:162"}[name],
+            "replaces": CHAIN_TPU[name],
             "launches": encdec["serve"]["launches"].get(name, 0),
             "prefill_launches": encdec["prefill"]["counts"][
                 "bf16/pallas"].get(name, 0),
@@ -3911,10 +4104,7 @@ def run_phases(t_start, work, children, ops, cases, fa_ops,
         weights = "tt-int8" if name.endswith("q") else "tt"
         kernels.append({
             "name": f"{name}_ssm", "route": "cuda", "source": chain_src,
-            "replaces": {"tt_contract_2": "src/repro/kernels/tt_contract/kernel.py:138",
-                         "tt_contract_3": "src/repro/kernels/tt_contract/kernel.py:162",
-                         "tt_contract_2q": "src/repro/kernels/tt_contract/kernel.py:190",
-                         "tt_contract_3q": "src/repro/kernels/tt_contract/kernel.py:219"}[name],
+            "replaces": CHAIN_TPU[name],
             "launches": ssm["serve"][weights]["launches"].get(name, 0),
             "prefill_launches": ssm["prefill"]["bf16_tt"]["counts"].get(
                 name, 0),
@@ -3930,6 +4120,34 @@ def run_phases(t_start, work, children, ops, cases, fa_ops,
                      f"run (B 4, prompt 16, gen 16) and one bf16 prefill "
                      f"(tt storage)",
         })
+    for name in sorted(gemma["chains"]):
+        r = gemma["chains"][name]
+        weights = "tt-int8" if name.endswith("q") else "tt"
+        kernels.append({
+            "name": f"{name}_gemma3", "route": "cuda", "source": chain_src,
+            "replaces": CHAIN_TPU[name],
+            "launches": gemma[weights]["counts"].get(name, 0),
+            "prefill_launches": gemma["prefill"]["counts"]["pallas"].get(
+                name, 0),
+            "max_abs_err": r["max_abs_err"],
+            "max_abs_err_bf16_x": r["max_abs_err_bf16_x"],
+            "ms": r["ms"], "graph_ms": r["graph_ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": bound_by(r), "library_ms": r["library_ms"],
+            "timed": f"one tt_apply call from the stored tensors, summed "
+                     f"over one {GEMMA_ARCH} layer's calls (wq, wk, wv, "
+                     f"wo, w_gate, w_up, w_down) at B=4, bf16 x, storage "
+                     f"as served; launches: the {weights} serve run (B 4, "
+                     f"prompt 16, gen 16) and one bf16 prefill (tt "
+                     f"storage, B {GEMMA_B} x {BIG_PREFILL_S})",
+        })
+    print(f"[chip_smoke] gemma3 summary: " + json.dumps({
+        k: (v if not k.startswith("chains") else
+            {n: {kk: r[kk] for kk in ("max_abs_err", "max_abs_err_bf16_x",
+                                      "ms", "graph_ms", "bound_ms",
+                                      "plain_ms", "library_ms")}
+             for n, r in v.items()})
+        for k, v in gemma.items()}))
     print(f"[chip_smoke] ssm summary: " + json.dumps({
         k: v for k, v in ssm.items() if k != "chains"}))
     print(f"[chip_smoke] encdec summary: " + json.dumps({

@@ -9,11 +9,11 @@ from repro_torch.configs.base import (
 )
 
 # canonical names → module ids (dense, MoE, SSM, hybrid and
-# encoder-decoder);
-# the other archs of the JAX zoo come with their families (ROADMAP.md
-# queue 1, item 7b)
+# encoder-decoder); the JAX zoo's vlm (pixtral-12b) comes with its family
+# (ROADMAP.md queue 1, item 7b)
 NAME_TO_MODULE = {
     "qwen1.5-0.5b": "qwen1p5_0p5b",
+    "gemma3-1b": "gemma3_1b",
     "recurrentgemma-2b": "recurrentgemma_2b",
     "olmoe-1b-7b": "olmoe_1b_7b",
     "mamba2-1.3b": "mamba2_1p3b",

@@ -60,7 +60,9 @@ BATCHED_EC = ((64, 1), (64, 4), (64, 64), (3, 9))
 # paths at full width, eps 0.2, seed 0 (the ranks chip_smoke.py's
 # compressions give): qwen1.5-0.5b, olmoe-1b-7b's attention,
 # recurrentgemma-2b, mamba2-1.3b (w_in's 8,512 outputs: a multiple of 64,
-# not of 128); and ragged ones (no dimension a multiple of a tile)
+# not of 128), gemma3-1b (1,152 = 2^7·9 wide, a single KV head of 256,
+# 6,912 = 2^8·27 MLP rows); and ragged ones (no dimension a multiple of a
+# tile)
 STORED_SHAPES = {
     "qwen1.5-0.5b wq/wk/wv": (1, [(24, 1024, 417), (417, 16, 18), (18, 64, 1)]),
     "qwen1.5-0.5b wo": (2, [(24, 16, 323), (323, 64, 38), (38, 1024, 1)]),
@@ -75,6 +77,11 @@ STORED_SHAPES = {
     "recurrentgemma-2b mlp down": (1, [(8, 7680, 31), (31, 2560, 1)]),
     "mamba2-1.3b w_in": (1, [(48, 2048, 31), (31, 8512, 1)]),
     "mamba2-1.3b w_out": (1, [(48, 4096, 31), (31, 2048, 1)]),
+    "gemma3-1b wq": (1, [(26, 1152, 154), (154, 4, 22), (22, 256, 1)]),
+    "gemma3-1b wk/wv": (1, [(26, 1152, 40), (40, 1, 22), (22, 256, 1)]),
+    "gemma3-1b wo": (2, [(26, 4, 102), (102, 256, 44), (44, 1152, 1)]),
+    "gemma3-1b mlp gate/up": (1, [(26, 1152, 31), (31, 6912, 1)]),
+    "gemma3-1b mlp down": (1, [(26, 6912, 31), (31, 1152, 1)]),
 }
 RAGGED_STORED = {
     "ragged depth 2": (1, [(3, 70, 5), (5, 300, 1)]),

@@ -3,7 +3,8 @@
 Port of the serving subset of the JAX package's ``models/common.py``:
 
   * building blocks — ``rms_norm``, ``apply_rope``, ``activate``,
-    ``causal_conv``, initializers, ``unembed``, ``cross_entropy_loss``, and ``dense_apply``
+    ``causal_conv``, initializers, ``embed_tokens``, ``unembed``,
+    ``cross_entropy_loss``, and ``dense_apply``
     / ``expert_apply``, the raw-vs-TT weight dispatch points every
     projection and every expert bank goes through;
   * TT-native serving — the per-family rule registry and
@@ -35,6 +36,7 @@ from repro_torch import prng
 from repro_torch import tree as _tree
 from repro_torch.core import compression as _comp
 from repro_torch.core import tt_linear as _ttl
+from repro_torch.device import torch_dtype
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,
@@ -238,6 +240,17 @@ def embed_init(gen: torch.Generator, shape, dtype=torch.bfloat16,
     t = torch.empty(shape, dtype=torch.float32, device=device)
     torch.nn.init.trunc_normal_(t, 0.0, 1.0, -3.0, 3.0, generator=gen)
     return (t * 0.02).to(dtype)
+
+
+def embed_tokens(table: torch.Tensor, tokens: torch.Tensor, cfg,
+                 scaled: bool) -> torch.Tensor:
+    """The rows of ``tokens`` in the activation dtype; ``scaled`` (the
+    gemma models): times √d_model, the factor rounded to that dtype first,
+    as the reference rounds it (bf16 at d_model 1,152: 34.0, not 33.94)."""
+    x = table[tokens].to(torch_dtype(cfg.dtype))
+    if scaled:
+        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
+    return x
 
 
 def unembed(x: torch.Tensor, embed: torch.Tensor,

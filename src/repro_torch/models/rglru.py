@@ -130,13 +130,6 @@ def init(seed: int, cfg, device) -> GriffinParams:
         final_norm=torch.zeros((cfg.d_model,), dtype=dt, device=device))
 
 
-def _embed(params: GriffinParams, tokens, cfg) -> torch.Tensor:
-    """Embedding rows times √d_model, the factor rounded to the embedding
-    dtype as the reference rounds it."""
-    x = params.embed[tokens].to(torch_dtype(cfg.dtype))
-    return x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
-
-
 # ---------------------------------------------------------------------------
 # Prefill / training shapes
 # ---------------------------------------------------------------------------
@@ -187,7 +180,7 @@ def _attn_block(x, lp: AttnLayerParams, cfg, positions, impl: str):
 
 def forward(params: GriffinParams, tokens, cfg, impl: str = "xla"):
     """tokens (B, S) → final-normed hidden states (B, S, D)."""
-    x = _embed(params, tokens, cfg)
+    x = common.embed_tokens(params.embed, tokens, cfg, scaled=True)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device).expand(b, s)
     n_triples, n_tail = plan(cfg)
@@ -308,7 +301,7 @@ def _attn_step(x, lp: AttnLayerParams, cfg, k_c, v_c, pos):
 def decode_step(params: GriffinParams, cache: GriffinCache, tokens, cfg):
     """One token per slot in (B, 1), logits (B, V) out; the cache's state,
     conv history and ring rows are updated in place."""
-    x = _embed(params, tokens, cfg)
+    x = common.embed_tokens(params.embed, tokens, cfg, scaled=True)
     pos = cache.pos
     n_triples, n_tail = plan(cfg)
     for l in range(n_triples):

@@ -71,6 +71,11 @@ def _layer_flags(cfg) -> list:
     return [(i + 1) % cfg.global_every == 0 for i in range(cfg.num_layers)]
 
 
+def _scaled_embed(cfg) -> bool:
+    """The reference scales a dense gemma model's embedding by √d_model."""
+    return cfg.family == "dense" and cfg.name.startswith("gemma")
+
+
 def _block(x, lp: LayerParams, is_global: torch.Tensor, cfg, positions,
            impl: str):
     h = common.rms_norm(x, lp.ln1, cfg.norm_eps)
@@ -91,7 +96,7 @@ def forward(params: TransformerParams, tokens: torch.Tensor, cfg,
             impl: str = "xla") -> torch.Tensor:
     """tokens (B, S) → final-normed hidden states (B, P + S, D), the
     frontend's precomputed ``prefix_embeds`` (B, P, D) first."""
-    x = params.embed[tokens].to(torch_dtype(cfg.dtype))
+    x = common.embed_tokens(params.embed, tokens, cfg, _scaled_embed(cfg))
     if prefix_embeds is not None:
         x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
     b, s, _ = x.shape
@@ -157,7 +162,7 @@ def decode_step(params: TransformerParams, cache: DecodeCache,
                 ) -> Tuple[torch.Tensor, DecodeCache]:
     """One token per slot in (B, 1), logits (B, V) out; the cache rows at
     ``cache.pos`` are written in place."""
-    x = params.embed[tokens].to(torch_dtype(cfg.dtype))
+    x = common.embed_tokens(params.embed, tokens, cfg, _scaled_embed(cfg))
     b = x.shape[0]
     pos = cache.pos
     positions = pos.reshape(-1, 1).expand(b, 1)

@@ -93,4 +93,4 @@ def test_entry_points_without_device_raise(no_gpu):
 
 def test_unported_arch_and_family_raise():
     with pytest.raises(ValueError, match="not ported"):
-        get_config("gemma3-1b")
+        get_config("pixtral-12b")

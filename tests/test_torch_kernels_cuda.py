@@ -5,8 +5,9 @@
   (``cases.stored_case``), at the full-width stored shapes of qwen1.5-0.5b
   (wq/wo/MLP), olmoe-1b-7b's attention, recurrentgemma-2b (wq, MLP) and
   mamba2-1.3b (w_in 2,048 -> 8,512, whose width is a multiple of 64 but
-  not of 128, and w_out; both also at the prefill's 8,192 rows, as
-  recurrentgemma-2b's) and ragged ones, B in {1, 4, 64}, float32,
+  not of 128, and w_out) and gemma3-1b (1,152 wide, one KV head of 256,
+  MLP 6,912; all also at the prefill's 8,192 rows, as recurrentgemma-2b's)
+  and ragged ones, B in {1, 4, 64}, float32,
   bfloat16 and int8 storage; olmoe-1b-7b's three banks and synthetic
   depth-3 and ragged banks at 64 experts of 1, 4 or 64 tokens and 3 of 9,
   bf16 and int8 on the tensor-core route (the route counter), float32 on
@@ -145,7 +146,7 @@ STORED = [(name, split, shapes, None, b)
           for b in (1, 4, 64)] + [
     (name, split, shapes, None, 8192)
     for name, (split, shapes) in cases.STORED_SHAPES.items()
-    if name.startswith(("recurrentgemma", "mamba2"))]
+    if name.startswith(("recurrentgemma", "mamba2", "gemma3"))]
 STORED += [(name, split, shapes, e, c)
            for name, (split, shapes) in cases.STORED_BANKS.items()
            for e, c in cases.BATCHED_EC]

@@ -128,7 +128,7 @@ def test_config_and_params_carry_across(pair):
             cfg.ssm.head_dim, cfg.ssm.chunk) == (2, 128, 16, 16, 32)
     assert get_config("qwen1.5-0.5b").reduced().ssm is None
     with pytest.raises(ValueError, match="not ported"):
-        get_config("gemma3-1b")
+        get_config("pixtral-12b")
     assert isinstance(pparams, mamba2.MambaParams)
     assert pparams.layers.w_in.shape == (2, 128, 2 * 256 + 2 * 16 + 16)
     assert pparams.layers.conv_w.shape == (2, 4, 256 + 2 * 16)
